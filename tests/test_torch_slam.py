@@ -1,0 +1,250 @@
+"""The whole ICP-mode slice of the PyTorch port: the 25-scan golden loop
+replayed through the port's SlamNode (float64, CPU), held against the
+compiled C++ reference (golden/data/slam.bin) and against the JAX
+SlamNode rendering with the same exact march; plus the node's tf chain,
+NaN sentinel, unported options and threaded runtime on a small room."""
+
+import dataclasses
+import math
+import os
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ohm_tsd_slam_tpu import config as jcfg
+from ohm_tsd_slam_tpu.slam import LaserScan as JLaserScan
+from ohm_tsd_slam_tpu.slam import SlamNode as JSlamNode
+from ohm_tsd_slam_tpu.slam import localize as jlocalize
+from ohm_tsd_slam_tpu_torch import config as tcfg
+from ohm_tsd_slam_tpu_torch.core import se2
+from ohm_tsd_slam_tpu_torch.grid.push import push
+from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams
+from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
+from ohm_tsd_slam_tpu_torch.slam import LaserScan, LocalizeParams, SlamNode
+from ohm_tsd_slam_tpu_torch.slam.messages import PoseStamped
+from ohm_tsd_slam_tpu_torch.utils.testing import rect_walls, simulate_scan
+
+from golden_io import GOLDEN_DIR, load_golden
+
+SLAM_BIN = os.path.join(GOLDEN_DIR, "data", "slam.bin")
+SLAM_NPZ = os.path.join(GOLDEN_DIR, "data", "slam_inputs.npz")
+
+# float64 replay; the port renders with the same exact march as both
+# references, so only last-bit rounding separates the pose traces
+POSE_TOL = 1e-6
+
+
+def _golden_config(cfg):
+    """The configuration tests/test_reference_parity_slam.py builds, from
+    the config module `cfg` of either package."""
+    inp = np.load(SLAM_NPZ)
+    (cellsize, layout_grid, max_trunc, size, ang_res, phi_min, max_range,
+     min_range, low_refl, icp_iters, dist_max, dist_min, trns_max,
+     rot_max, trns_min, rot_min) = inp["params"]
+    fp_w, fp_h = inp["footprint"]
+    return cfg.SlamConfig(
+        grid=cfg.GridConfig(map_size=int(layout_grid),
+                            cellsize=float(cellsize),
+                            truncation_radius=float(max_trunc / cellsize)),
+        robots=[cfg.RobotConfig(
+            local_offset_yaw=0.2,
+            sensor=cfg.SensorConfig(max_range=float(max_range),
+                                    min_range=float(min_range),
+                                    low_reflectivity_range=float(low_refl),
+                                    laser_min_range=0.0),
+            footprint=cfg.FootprintConfig(width=float(fp_w),
+                                          height=float(fp_h), x_offset=0.0),
+            registration=cfg.RegistrationConfig(
+                trns_thresh=float(trns_max), rot_thresh=float(rot_max),
+                trns_min=float(trns_min), rot_min=float(rot_min),
+                icp=cfg.IcpConfig(iterations=int(icp_iters),
+                                  dist_filter_max=float(dist_max),
+                                  dist_filter_min=float(dist_min))),
+        )],
+    )
+
+
+def _replay(node, scan_cls):
+    """Replay the golden scans; returns poses [N,3,3], significance flags
+    and registration-error flags as the golden harness records them."""
+    inp = np.load(SLAM_NPZ)
+    scans = inp["scans"]
+    (_, _, _, _, ang_res, phi_min, max_range) = inp["params"][:7]
+    poses, sig, err = [], [], []
+    for k in range(len(scans)):
+        ranges = np.where(scans[k] >= 1e29, np.inf, scans[k])
+        msg = scan_cls(ranges=ranges, angle_min=float(phi_min),
+                       angle_increment=float(ang_res),
+                       range_max=float(max_range), stamp=float(k))
+        out = node.process_scan(0, msg)
+        loc = node.localizers[0]
+        pose = np.array(loc.pose)
+        poses.append(pose)
+        if k == 0:
+            assert out is None
+            sig.append(1)                       # the init push
+            err.append(0)
+        else:
+            err.append(int(math.isnan(out.x)))
+            sig.append(int(np.array_equal(np.array(loc.last_pose), pose)))
+    return np.asarray(poses), np.asarray(sig), np.asarray(err)
+
+
+def _assert_traces_close(got, want):
+    dpos = np.abs(got[:, :2, 2] - want[:, :2, 2]).max()
+    drot = np.abs(got[:, 0, 0] - want[:, 0, 0]).max()
+    assert dpos < POSE_TOL, dpos
+    assert drot < POSE_TOL, drot
+
+
+@pytest.fixture(scope="module")
+def port_replay():
+    node = SlamNode(_golden_config(tcfg), dtype=torch.float64)
+    assert node.mapper._push_fn is push     # CPU grid: the plain push
+    return _replay(node, LaserScan)
+
+
+def test_golden_replay_matches_reference(port_replay):
+    golden = load_golden(SLAM_BIN)
+    poses, sig, err = port_replay
+    flags = np.asarray(golden["flags"])
+    np.testing.assert_array_equal(err, flags[:, 0], err_msg="error gates")
+    assert err.sum() == 0
+    np.testing.assert_array_equal(sig, flags[:, 1],
+                                  err_msg="significance gates")
+    _assert_traces_close(
+        poses, np.asarray(golden["pose_trace"]).reshape(-1, 3, 3))
+
+
+def test_golden_replay_matches_jax_node(port_replay, monkeypatch):
+    from_config = jlocalize.LocalizeParams.from_config
+
+    def exact_march(*args, **kwargs):
+        return dataclasses.replace(from_config(*args, **kwargs),
+                                   fast_raycast=False)
+
+    monkeypatch.setattr(jlocalize.LocalizeParams, "from_config",
+                        staticmethod(exact_march))
+    jnode = JSlamNode(_golden_config(jcfg), dtype=jnp.float64)
+    jposes, jsig, jerr = _replay(jnode, JLaserScan)
+    assert not jnode.localizers[0].params.fast_raycast
+    poses, sig, err = port_replay
+    np.testing.assert_array_equal(err, jerr)
+    np.testing.assert_array_equal(sig, jsig)
+    _assert_traces_close(poses, jposes)
+
+
+# a small room run (tests/test_slam_e2e.py's settings)
+BEAMS, RES, PHI0, RMAX = 361, math.radians(0.75), math.radians(-135), 9.0
+ROOM_CFG = tcfg.SlamConfig(
+    grid=tcfg.GridConfig(map_size=8, cellsize=0.04),
+    robots=[tcfg.RobotConfig(
+        local_offset_yaw=0.2,
+        sensor=tcfg.SensorConfig(max_range=RMAX, min_range=0.01,
+                                 low_reflectivity_range=1.0),
+        registration=tcfg.RegistrationConfig(
+            icp=tcfg.IcpConfig(iterations=30, dist_filter_max=0.5,
+                               dist_filter_min=0.05)))],
+    grid_pub=tcfg.GridPubConfig(interval_s=0.5))
+
+
+def _room_scan(x, stamp, y=5.12, th=0.2):
+    pose = se2.make(x, y, th, dtype=torch.float64).numpy()
+    r = simulate_scan(pose, BEAMS, RES, PHI0, RMAX,
+                      segments=rect_walls(1.5, 1.5, 8.5, 8.5),
+                      circles=[((7.0, 7.2), 0.5)])
+    return LaserScan(ranges=r, angle_min=PHI0, angle_increment=RES,
+                     range_max=RMAX, stamp=stamp)
+
+
+def test_tf_map_odom_broadcast():
+    """sendTransform's chain (ThreadLocalize.cpp:604-689): identity before
+    the odom hop is known, pose·T(laser->footprint)·T(footprint->odom)
+    after, NaN tf for the NaN pose sentinel."""
+    node = SlamNode(ROOM_CFG, dtype=torch.float64)
+    tfs = []
+    node.tf_callbacks.append(lambda r, tf: tfs.append(tf))
+    node.set_static_tf(0, 0.10, 0.02, 0.05)
+    node.process_scan(0, _room_scan(5.12, 0.0))
+    node.process_scan(0, _room_scan(5.14, 1.0))
+    assert len(tfs) == 1 and tfs[0].x == 0.0 and tfs[0].theta == 0.0
+
+    node.on_footprint_odom(0, -0.30, 0.05, -0.10)
+    out = node.process_scan(0, _room_scan(5.16, 2.0))
+    assert out is not None and not out.is_nan and len(tfs) == 2
+    expect = (se2.make(out.x, out.y, out.theta, dtype=torch.float64)
+              @ se2.make(0.10, 0.02, 0.05, dtype=torch.float64)
+              @ se2.make(-0.30, 0.05, -0.10, dtype=torch.float64)).numpy()
+    # float64 host arithmetic on both sides
+    assert abs(tfs[-1].x - expect[0, 2]) < 1e-9
+    assert abs(tfs[-1].y - expect[1, 2]) < 1e-9
+    assert abs(tfs[-1].theta - math.atan2(expect[1, 0], expect[0, 0])) < 1e-9
+
+    node._broadcast_tf(0, node.localizers[0],
+                       PoseStamped(math.nan, math.nan, math.nan), 3.0)
+    assert math.isnan(tfs[-1].x) and math.isnan(tfs[-1].theta)
+
+
+def test_registration_error_gives_nan_sentinel():
+    """A scan from 0.35 m away is registered beyond reg_trs_max=0.25:
+    NaN pose published, pose kept (ThreadLocalize.cpp:381-387)."""
+    node = SlamNode(ROOM_CFG, dtype=torch.float64)
+    node.process_scan(0, _room_scan(5.12, 0.0))
+    node.process_scan(0, _room_scan(5.12, 1.0))
+    before = node.localizers[0].pose.clone()
+    out = node.process_scan(0, _room_scan(5.47, 2.0))
+    assert out is not None and out.is_nan
+    assert torch.equal(node.localizers[0].pose, before)
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    ({"fast_raycast": True}, "items 6-7"),
+    ({"mode": 3}, "item 11"),
+    ({"mode": 1}, "item 12"),
+    ({"mode": 4}, "item 13"),
+])
+def test_unported_options_raise(kwargs, item):
+    geom = SensorPolar2D(size=BEAMS, angular_res=RES, phi_min=PHI0,
+                         max_range=RMAX)
+    with pytest.raises(NotImplementedError, match=item):
+        LocalizeParams(geom=geom, icp=IcpParams(), **kwargs)
+
+
+def test_odom_rescue_raises():
+    rc = ROOM_CFG.robots[0]
+    geom = SensorPolar2D(size=BEAMS, angular_res=RES, phi_min=PHI0,
+                         max_range=RMAX)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        LocalizeParams.from_config(
+            rc.registration, geom,
+            odom_cfg=tcfg.OdomRescueConfig(use_odom_rescue=True))
+
+
+def test_threaded_runtime():
+    """start/on_scan/stop: localizer, mapper and grid threads over the
+    latest-wins channels publish poses that track the motion."""
+    node = SlamNode(ROOM_CFG, dtype=torch.float64)
+    got = []
+    node.pose_callbacks.append(lambda robot, msg: got.append((robot, msg)))
+    scan = _room_scan
+
+    node.on_scan(0, scan(5.12, 0.0))       # initializes synchronously
+    assert node.localizers[0].initialized
+    node.start()
+    try:
+        for k in range(1, 6):
+            node.on_scan(0, scan(5.12 + 0.02 * k, float(k)))
+            time.sleep(0.3)
+        deadline = time.time() + 20.0
+        while not got and time.time() < deadline:
+            time.sleep(0.1)
+    finally:
+        node.stop()
+    assert not node._threads
+    assert got, "no poses published by the localizer thread"
+    last = node.localizers[0].pose.numpy()
+    assert abs(last[0, 2] - 5.12) < 0.2 and not math.isnan(last[0, 2])
+    assert node.grid_pub.get_map() is not None
