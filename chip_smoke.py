@@ -6,16 +6,24 @@
 Run from the root of a checkout.  Phases, each of which raises on failure:
 
 1. device: requires torch.cuda; prints the card's name and power limit;
-2. build: compiles every CUDA kernel of the main path from csrc/;
+2. build: deletes and recompiles every CUDA kernel of the main path from
+   csrc/ (five libraries, one nvcc process each, all started together);
 3. kernel check: the push kernel against the plain push, both float32 on
    the card, at 1024^2 / 0.025 m / 1081 beams (three poses into one grid,
-   a sensor outside the grid, an all-masked scan);
+   a sensor outside the grid, an all-masked scan); the fast caster's four
+   kernels (segment layers, row pack, segment min, window replay) against
+   their plain twins at every call of the caster (ops/kernel_check.py), on
+   four synthetic fields: a thin sliver that forces the candidate rounds,
+   a noise field whose segments overflow the capacity (the node falls
+   back to the exact march), an empty grid, a sensor outside the grid;
 4. main path: SlamNode with configs/double-laser.yaml's settings (two
-   robots sharing the grid, 25 ICP iterations, exact-march renderer),
-   ~60 simulated scans per robot through process_scan, then publish_map;
-5. times: first a check that localize_step and the push wrapper make no
-   host sync, then medians and quartiles of 25 runs after a warm-up, each
-   printed beside the card's name and power limit.
+   robots sharing the grid, 25 ICP iterations, the fast caster), ~60
+   simulated scans per robot through process_scan, then publish_map; then
+   the caster's kernels against their twins on the grid it built;
+5. times: first a check that extract_segments, localize_step and the push
+   wrapper make no host sync, then medians and quartiles of 25 runs after
+   a warm-up, each printed beside the card's name and power limit, and the
+   peak device memory of the caster's stages.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}} and is printed only when every phase
@@ -41,6 +49,19 @@ PHI_MIN = math.radians(-135.0)
 RES = math.radians(0.25)
 SCANS_PER_ROBOT = 60
 N_TIMED = 25
+
+# the fast caster's kernels: wrapper module under ops/, C function, source
+# and the TPU kernel it replaces
+CASTER = [
+    ("segment_layers", "segment_layers_f32",
+     "ohm_tsd_slam_tpu/ops/segment_layers_pallas.py:180"),
+    ("pack_rows", "pack_rows_f32",
+     "ohm_tsd_slam_tpu/ops/pack_rows_pallas.py:96"),
+    ("segment_min", "segment_min_f32",
+     "ohm_tsd_slam_tpu/ops/raycast_pallas.py:202"),
+    ("window_replay", "window_replay_f32",
+     "ohm_tsd_slam_tpu/ops/window_block_pallas.py:425, :764"),
+]
 
 # configs/double-laser.yaml, as a flat parameter dict
 DOUBLE_LASER = {
@@ -147,6 +168,132 @@ def compare_push(g_ref, g_ker) -> dict:
     return stats
 
 
+def caster_wrappers() -> dict:
+    """name -> the wrapper function (with its `launches` count)."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(
+        f"ohm_tsd_slam_tpu_torch.ops.{name}_cuda"), name)
+        for name, _, _ in CASTER}
+
+
+def geom_1081(max_range=30.0):
+    from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
+
+    return SensorPolar2D(size=BEAMS, angular_res=RES, phi_min=PHI_MIN,
+                         max_range=max_range, min_range=0.01)
+
+
+def merge_stats(total: dict, check) -> None:
+    for name, st in check.stats.items():
+        t = total.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
+        t["calls"] += st["calls"]
+        t["max_abs_err"] = max(t["max_abs_err"], st["max_abs_err"])
+
+
+def checked_render(grid, geom, xyt, total: dict, max_segments=None):
+    """Extraction and one render on the kernel path, every kernel call
+    held against its twin; returns (cache, result, exact-march result)."""
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.raycast import raycast
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck
+
+    check = KernelCheck()
+    seg = rf.extract_segments(grid, max_segments, kernels=check.kernels)
+    pose = se2.make(*xyt, device=grid.tsd.device)
+    res = rf.raycast_fast(grid, geom, pose, segments=seg,
+                          kernels=check.kernels)
+    exact = raycast(grid, geom, pose)
+    torch.cuda.synchronize()
+    merge_stats(total, check)
+    return check, seg, res, exact
+
+
+def agreement(res, exact) -> dict:
+    """Fast caster against the exact march: share of beams whose mask
+    agrees, and the largest coordinate gap where both hit."""
+    both = res.mask & exact.mask
+    gap = (res.coords[both] - exact.coords[both]).abs()
+    return {"hits": int(res.mask.sum()), "exact_hits": int(exact.mask.sum()),
+            "agree": float((res.mask == exact.mask).float().mean()),
+            "max_coord_gap": float(gap.max()) if gap.numel() else 0.0}
+
+
+def caster_check(dev, total: dict) -> dict:
+    """The four caster kernels against their twins on synthetic fields."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.state import from_arrays
+    from ohm_tsd_slam_tpu_torch.slam import LaserScan, SlamNode
+    from ohm_tsd_slam_tpu_torch.utils.testing import (
+        field_arrays,
+        noise_field,
+        sliver_field,
+    )
+
+    geom = geom_1081()
+    s = 0.025
+    out = {}
+
+    def grid_of(f):
+        return from_arrays(field_arrays(f.astype(np.float32), s), device=dev)
+
+    # a 2 m sliver at x = 15.0 m, a wall from x = 17.5 m; the sensor 5 m
+    # left of the sliver: beams that step over it end at the wall, found
+    # in the later candidate rounds (fewer than UNRESOLVED_CAP of them)
+    sliver = grid_of(sliver_field(CELLS, 600, 700, rows=(472, 552)))
+    xyt = (10.0, 12.8, 0.05)
+    check, seg, res, exact = checked_render(sliver, geom, xyt, total)
+    x_hit = (res.coords[:, 0] * math.cos(xyt[2])
+             - res.coords[:, 1] * math.sin(xyt[2]) + xyt[0])
+    # C at K=1 then K=ROUNDS-1; D on all beams, then on the round slots
+    mins = [f["finite"] for n, _, f in check.log if n == "segment_min"]
+    replays = [f["hits"] for n, _, f in check.log if n == "window_replay"]
+    out["sliver"] = dict(agreement(res, exact),
+                         wall_hits=int((res.mask & (x_hit > 17.0)).sum()),
+                         segment_min_finite=mins, window_replay_hits=replays)
+    assert len(mins) == 2 and len(mins[1]) == rf.ROUNDS - 1, out["sliver"]
+    assert mins[1][0] > 0 and len(replays) == rf.ROUNDS, out["sliver"]
+    assert sum(replays[1:]) > 10, out["sliver"]      # hits in the rounds
+    assert out["sliver"]["wall_hits"] > 10, out["sliver"]
+    assert int(res.n_dropped) == 0, out["sliver"]
+    assert torch.equal(res.mask, exact.mask), out["sliver"]
+
+    # noise: far more segments than MAX_SEGMENTS; B counts the drops
+    noise = grid_of(noise_field(CELLS, seed=3))
+    check, seg, res, _ = checked_render(noise, geom, (12.8, 12.8, 0.0),
+                                        total)
+    out["noise"] = {"segments": int(seg.count),
+                    "n_dropped": int(seg.n_dropped),
+                    "rays_dropped": int(res.n_dropped)}
+    assert int(seg.count) == rf.MAX_SEGMENTS and int(seg.n_dropped) > 0
+    assert int(res.n_dropped) >= int(seg.n_dropped)
+    # ... and the node falls back to the exact march on that grid
+    cfg = from_flat_params({**DOUBLE_LASER, "robot_nbr": 1})
+    node = SlamNode(cfg, dtype=torch.float32, device=dev)
+    half = cfg.grid.size_meters * 0.5
+    for k in range(2):
+        node.process_scan(0, LaserScan(
+            ranges=scan_ranges((half, half, 0.0), 30.0), angle_min=PHI_MIN,
+            angle_increment=RES, range_max=30.0, stamp=float(k)))
+        if k == 0:
+            node.grid = noise
+    loc = node.localizers[0]
+    out["noise"]["node_rays_dropped"] = loc.rays_dropped
+    assert loc.params.fast_raycast and loc.rays_dropped > 0, out["noise"]
+
+    for name, grid, xyt in (
+            ("empty", from_arrays(field_arrays(
+                np.full((CELLS, CELLS), np.nan, np.float32), s), device=dev),
+             (12.8, 12.8, 0.0)),
+            ("sensor_outside", sliver, (60.0, 60.0, 0.0))):
+        check, seg, res, exact = checked_render(grid, geom, xyt, total)
+        out[name] = dict(agreement(res, exact), segments=int(seg.count))
+        assert not res.mask.any() and not exact.mask.any(), out[name]
+    return out
+
+
 def kernel_check(dev) -> dict:
     from ohm_tsd_slam_tpu_torch.config import GridConfig
     from ohm_tsd_slam_tpu_torch.core import se2
@@ -189,10 +336,35 @@ def kernel_check(dev) -> dict:
     return results
 
 
+def watch_plain(on_cuda: list) -> list:
+    """Wrap every plain version a wrapper runs for a CPU tensor so that a
+    call with a CUDA tensor is recorded in `on_cuda`; returns the
+    (module, name, original) list to restore."""
+    import importlib
+
+    targets = [(importlib.import_module(
+        "ohm_tsd_slam_tpu_torch.ops.push_cuda"), "push")]
+    targets += [(importlib.import_module(
+        f"ohm_tsd_slam_tpu_torch.ops.{name}_cuda"), f"{name}_plain")
+        for name, _, _ in CASTER]
+    saved = []
+    for mod, attr in targets:
+        orig = getattr(mod, attr)
+
+        def watched(*args, _orig=orig, _name=attr, **kwargs):
+            if any(getattr(getattr(a, "tsd", a), "is_cuda", False)
+                   for a in args):
+                on_cuda.append(_name)
+            return _orig(*args, **kwargs)
+
+        setattr(mod, attr, watched)
+        saved.append((mod, attr, orig))
+    return saved
+
+
 def main_path(dev, label: str):
     """Both robots through SlamNode.process_scan, then publish_map."""
     from ohm_tsd_slam_tpu_torch.config import from_flat_params
-    from ohm_tsd_slam_tpu_torch.ops import push_cuda as push_cuda_mod
     from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
     from ohm_tsd_slam_tpu_torch.slam import LaserScan, SlamNode
 
@@ -200,17 +372,10 @@ def main_path(dev, label: str):
     node = SlamNode(cfg, dtype=torch.float32, device=dev)
     assert node.mapper._push_fn is push_cuda, node.mapper._push_fn
 
-    # the plain push must never see a CUDA grid on the main path: the
-    # wrapper is the only way there from the mapper
+    # no plain version may see a CUDA tensor on the main path: the
+    # wrappers are the only way there
     plain_on_cuda = []
-    plain = push_cuda_mod.push
-
-    def watched(grid, *args):
-        if grid.tsd.is_cuda:
-            plain_on_cuda.append(1)
-        return plain(grid, *args)
-
-    push_cuda_mod.push = watched
+    saved = watch_plain(plain_on_cuda)
     n_pushes = []
     kernel_push = node.mapper._push_fn
 
@@ -227,17 +392,25 @@ def main_path(dev, label: str):
     scans = [[scan_ranges(p, rc.sensor.max_range) for p in gt]
              for gt, rc in zip(gts, cfg.robots)]
 
+    wrappers = caster_wrappers()
     push_cuda.launches = 0           # counts from the main path only
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     errs = [[], []]
+    n_scans = updates = 0
     for k in range(SCANS_PER_ROBOT):
         for r in range(2):
+            before = node.grid.tsd
             out = node.process_scan(r, LaserScan(
                 ranges=scans[r][k], angle_min=PHI_MIN, angle_increment=RES,
                 range_max=cfg.robots[r].sensor.max_range, stamp=float(k)))
+            updates += node.grid.tsd is not before
             if k == 0:
                 assert out is None
                 continue
+            n_scans += 1
+            assert node.localizers[r].rays_dropped == 0, (r, k)
             assert out is not None and not out.is_nan, (r, k)
             est = node.localizers[r].pose.cpu().numpy()
             assert np.isfinite(est).all(), (r, k)
@@ -246,8 +419,10 @@ def main_path(dev, label: str):
     occ, img = node.publish_map()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = push_cuda.launches
-    push_cuda_mod.push = plain
+    launches = {"push": push_cuda.launches}
+    launches.update({name: fn.launches for name, fn in wrappers.items()})
+    for mod, attr, orig in saved:
+        setattr(mod, attr, orig)
 
     limit = 2.5 * cfg.grid.cellsize
     for r in range(2):
@@ -255,12 +430,22 @@ def main_path(dev, label: str):
               f"{max(errs[r]):.6f} m, final {errs[r][-1]:.6f} m "
               f"(limit {limit} m)")
         assert max(errs[r]) < limit, (r, max(errs[r]))
-    print(f"main path: {len(n_pushes)} pushes, push kernel launches "
-          f"{launches}, plain push on CUDA {len(plain_on_cuda)}; "
-          f"{2 * SCANS_PER_ROBOT} scans + publish_map in {wall:.3f} s "
-          f"(first-call overheads included) [{label}]")
-    assert launches >= len(n_pushes) > 2, (launches, len(n_pushes))
-    assert not plain_on_cuda
+    print(f"main path: {len(n_pushes)} pushes, {updates} grid versions, "
+          f"{n_scans} localized scans (fast caster, rays_dropped 0 on "
+          f"each); kernel launches {json.dumps(launches)}; plain versions "
+          f"on CUDA {len(plain_on_cuda)}; {2 * SCANS_PER_ROBOT} scans + "
+          f"publish_map in {wall:.3f} s (first-call overheads included) "
+          f"[{label}]")
+    assert all(loc.params.fast_raycast for loc in node.localizers)
+    assert launches["push"] >= len(n_pushes) > 2, launches
+    # A and B once per grid version, C twice and D ROUNDS times per scan
+    # (rays_dropped 0 on every scan: no scan fell back to the exact march)
+    from ohm_tsd_slam_tpu_torch.grid.raycast_fast import ROUNDS
+
+    assert launches["segment_layers"] == launches["pack_rows"] >= updates
+    assert launches["segment_min"] == 2 * n_scans, launches
+    assert launches["window_replay"] == ROUNDS * n_scans, launches
+    assert not plain_on_cuda, plain_on_cuda
     for f in ("tsd", "weight", "tile_init", "tile_initw"):
         assert getattr(node.grid, f).is_cuda, f
     n_occ = int((occ.data == 100).sum())
@@ -273,8 +458,43 @@ def main_path(dev, label: str):
     return node, launches
 
 
+def main_grid_check(node, total: dict) -> dict:
+    """The caster's kernels against their twins on the grid the main path
+    built, from each robot's last pose; the result against the exact
+    march (tests/test_raycast_fast.py's bound: 98% of beams agree)."""
+    out = {}
+    for r, loc in enumerate(node.localizers):
+        p = loc.pose
+        xyt = (float(p[0, 2]), float(p[1, 2]),
+               math.atan2(float(p[1, 0]), float(p[0, 0])))
+        _, seg, res, exact = checked_render(node.grid, loc.geom, xyt,
+                                            total)
+        out[f"robot{r}"] = dict(agreement(res, exact),
+                                segments=int(seg.count),
+                                n_dropped=int(res.n_dropped))
+        assert int(res.n_dropped) == 0, out
+        assert out[f"robot{r}"]["agree"] > 0.98, out
+        assert out[f"robot{r}"]["max_coord_gap"] < 1e-3, out
+        assert out[f"robot{r}"]["hits"] > 500, out
+    return out
+
+
+def peak_mib(fn) -> tuple:
+    """Device memory fn() allocates above what is held, and what is held."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 2**20, held / 2**20
+
+
 def stage_times(node, label: str) -> dict:
     """Median times of the main path's stages on the card."""
+    import dataclasses
+
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.compact import compact_mask
     from ohm_tsd_slam_tpu_torch.grid.push import push
     from ohm_tsd_slam_tpu_torch.grid.raycast import raycast
     from ohm_tsd_slam_tpu_torch.ops.push_cuda import (
@@ -289,34 +509,41 @@ def stage_times(node, label: str) -> dict:
 
     loc = node.localizers[0]
     grid, geom, pose = node.grid, loc.geom, loc.pose.contiguous()
+    params = loc.params
+    exact_params = dataclasses.replace(params, fast_raycast=False)
     xyt = (float(pose[0, 2]), float(pose[1, 2]),
            math.atan2(float(pose[1, 0]), float(pose[0, 0])))
     data, mask = node._preprocess(loc, scan_ranges(xyt, geom.max_range))
+    seg = node._segments_for(grid)
 
-    # localize_step (raycast + ICP + gates) and the push wrapper queue
-    # their work without reading anything back: any host sync raises here
+    def localize(p=params):
+        return localize_step(grid, pose, loc.last_pose, data, mask, p,
+                             segments=seg)
+
+    # extraction, localize_step (fast caster + ICP + gates) and the push
+    # wrapper queue their work without reading anything back: any host
+    # sync raises here
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        localize_step(grid, pose, loc.last_pose, data, mask, loc.params)
+        rf.extract_segments(grid)
+        localize()
         push_cuda(grid, geom, pose, data, mask)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    print("sync check: localize_step and push_cuda ran with no host sync")
+    print("sync check: extract_segments, localize_step (fast caster) and "
+          "push_cuda ran with no host sync")
 
     # device memory a call allocates beyond what the node already holds
     for name, fn in (
-            ("localize_step", lambda: localize_step(
-                grid, pose, loc.last_pose, data, mask, loc.params)),
+            ("extract_segments", lambda: rf.extract_segments(grid)),
+            ("raycast_fast", lambda: rf.raycast_fast(grid, geom, pose,
+                                                     segments=seg)),
+            ("localize_step", localize),
             ("push_cuda", lambda: push_cuda(grid, geom, pose, data, mask))):
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - held
-        print(f"peak device memory {name}: {peak / 2**20:.1f} MiB above "
-              f"the {held / 2**20:.1f} MiB held [{label}]")
+        peak, held = peak_mib(fn)
+        print(f"peak device memory {name}: {peak:.1f} MiB above the "
+              f"{held:.1f} MiB held [{label}]")
     t = {}
     t["push kernel (push_cuda: tile cull + copy + kernel)"] = time_cuda(
         lambda: push_cuda(grid, geom, pose, data, mask))
@@ -331,17 +558,87 @@ def stage_times(node, label: str) -> dict:
     active = int((touch | (empty_inc & grid.tile_init)).sum())
     print(f"push: {active} of {touch.numel()} tiles active in the timed push")
 
-    model = raycast(grid, geom, pose)
-    scene, smask = data_to_cartesian(geom, data, mask)
+    # the caster's kernels alone against their twins, at the main path's
+    # inputs: the layers and pack of this grid, the round-1 candidate
+    # sweep and window replay of robot0's 1081 beams
+    ks = caster_wrappers()
+    S = rf.MAX_SEGMENTS
+    lmask, rows = ks["segment_layers"](grid)
+    t["A segment_layers kernel"] = time_cuda(
+        lambda: ks["segment_layers"](grid))
+    t["A segment_layers plain"] = time_cuda(
+        lambda: rf.segment_layers_plain(grid))
+    t["B pack_rows kernel"] = time_cuda(
+        lambda: ks["pack_rows"](grid, lmask, rows, S))
+    t["B pack_rows plain"] = time_cuda(
+        lambda: rf.pack_rows_plain(grid, lmask, S))
+    t["extract_segments (A + B + candidate pack)"] = time_cuda(
+        lambda: rf.extract_segments(grid))
+    twins = rf.CasterKernels(
+        rf.segment_layers_plain,
+        lambda g, m, rows, size: rf.pack_rows_plain(g, m, size),
+        rf.segment_min_plain, rf.window_replay_plain)
+    t["extract_segments plain (twins of A + B, candidate pack)"] = time_cuda(
+        lambda: rf.extract_segments(grid, kernels=twins))
+    ray, tr, idx_min, idx_max, feasible = rf.beam_geometry(grid, geom, pose)
+    lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
+    hi = torch.ceil(idx_max) + 1.0
+    tr_pack = (tr - seg.origin).contiguous()
+    cargs = (seg.pack, seg.count, ray, lo, hi, lo, tr_pack)
+    t["C segment_min kernel (K=1)"] = time_cuda(
+        lambda: ks["segment_min"](*cargs))
+    t["C segment_min plain (K=1)"] = time_cuda(
+        lambda: rf.segment_min_plain(*cargs))
+    t_1 = ks["segment_min"](*cargs)[:, 0]
+    has = torch.isfinite(t_1) & feasible
+    k_1 = torch.where(has, t_1, 0.0)
+    tw0 = idx_min + (torch.floor(k_1 - idx_min) - rf.BACKOFF).clamp(min=0.0)
+    dargs = (grid, tw0, ray, idx_max, has, tr.contiguous())
+    t["D window_replay kernel (round 1)"] = time_cuda(
+        lambda: ks["window_replay"](*dargs))
+    t["D window_replay plain (round 1)"] = time_cuda(
+        lambda: rf.window_replay_plain(*dargs))
+
+    # the rounds as the main path launches them: C at K=ROUNDS-1 for the
+    # beams round 1 left unresolved, D on the first round's compacted slots
+    resolved = (ks["window_replay"](*dargs)[:, 1] > 0.0) | ~has
+    t_after = torch.where(resolved, math.inf,
+                          torch.maximum(lo, k_1 + rf.COVER))
+    c3args = (seg.pack, seg.count, ray, lo, hi, t_after, tr_pack,
+              rf.ROUNDS - 1, rf.COVER)
+    t["C segment_min kernel (K=3, rounds)"] = time_cuda(
+        lambda: ks["segment_min"](*c3args))
+    t["C segment_min plain (K=3, rounds)"] = time_cuda(
+        lambda: rf.segment_min_plain(*c3args))
+    t_2 = ks["segment_min"](*c3args)[:, 0]
+    need = torch.isfinite(t_2) & ~resolved
+    cap = rf.unresolved_cap(ray.shape[0])
+    idx_u, uvalid = compact_mask(need, cap)
+    k_u = torch.where(uvalid, t_2[idx_u], 0.0)
+    tw_u = idx_min[idx_u] + (torch.floor(k_u - idx_min[idx_u])
+                             - rf.BACKOFF).clamp(min=0.0)
+    uargs = (grid, tw_u, ray[idx_u].contiguous(), idx_max[idx_u], uvalid,
+             tr.contiguous())
+    t[f"D window_replay kernel (round 2, {cap} slots)"] = time_cuda(
+        lambda: ks["window_replay"](*uargs))
+    t[f"D window_replay plain (round 2, {cap} slots)"] = time_cuda(
+        lambda: rf.window_replay_plain(*uargs))
+    print(f"rounds: {int(need.sum())} of {cap} round-2 slots active in the "
+          "timed round")
+
+    t["raycast_fast (cached segments, kernels)"] = time_cuda(
+        lambda: rf.raycast_fast(grid, geom, pose, segments=seg))
     t["raycast (exact march)"] = time_cuda(
         lambda: raycast(grid, geom, pose))
+    model = rf.raycast_fast(grid, geom, pose, segments=seg)
+    scene, smask = data_to_cartesian(geom, data, mask)
     t["icp (25 iterations)"] = time_cuda(
         lambda: icp(model.coords, model.mask, scene, smask,
-                    loc.params.icp, sensor_pose=pose,
+                    params.icp, sensor_pose=pose,
                     model_normals=model.normals))
-    t["localize_step"] = time_cuda(
-        lambda: localize_step(grid, pose, loc.last_pose, data, mask,
-                              loc.params))
+    t["localize_step (fast caster)"] = time_cuda(localize)
+    t["localize_step (exact march)"] = time_cuda(
+        lambda: localize(exact_params))
 
     # whole process_scan on robot0's continued trajectory (host clock,
     # ends in the node's own reads of the device); some scans push
@@ -357,10 +654,12 @@ def stage_times(node, label: str) -> dict:
         t0 = time.perf_counter()
         node.process_scan(0, msg)
         torch.cuda.synchronize()
+        assert loc.rays_dropped == 0
         if i >= 3:
             wall.append((time.perf_counter() - t0) * 1e3)
             pushed += push_cuda.launches - before
-    t[f"process_scan (host clock; {pushed} of {len(wall)} pushed)"] = wall
+    t[f"process_scan (host clock, fast caster; {pushed} of {len(wall)} "
+      "pushed)"] = wall
 
     pub = []
     for i in range(N_TIMED + 3):
@@ -386,7 +685,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ohm_tsd_slam_tpu_torch.ops import _build
-    from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
 
     dev = torch.device("cuda")
     # 1. device
@@ -396,20 +694,31 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # 2. build (from the sources in this checkout, never a cached library)
-    lib = os.path.join(_build.BUILD_DIR, "libpush.so")
-    if os.path.exists(lib):
-        os.remove(lib)
+    names = ["push"] + [name for name, _, _ in CASTER]
+    for name in names:
+        if os.path.exists(_build.lib_path(name)):
+            os.remove(_build.lib_path(name))
     t0 = time.perf_counter()
-    _build.load("push")
-    print(f"build csrc/push.cu with nvcc: {time.perf_counter() - t0:.2f} s")
+    _build.build_all(names)
+    for name in names:
+        _build.load(name)
+    print(f"build {len(names)} sources in csrc/ with nvcc, in parallel: "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernel check
     check = kernel_check(dev)
     for name, stats in check.items():
         print(f"kernel check {name}: {json.dumps(stats)}")
+    caster_stats: dict = {}
+    for name, stats in caster_check(dev, caster_stats).items():
+        print(f"kernel check caster {name}: {json.dumps(stats)}")
 
-    # 4. main path
+    # 4. main path, then the caster's kernels on the grid it built
     node, launches = main_path(dev, label)
+    for name, stats in main_grid_check(node, caster_stats).items():
+        print(f"kernel check caster main-path grid {name}: "
+              f"{json.dumps(stats)}")
+    print(f"kernel check caster, every call: {json.dumps(caster_stats)}")
 
     # 5. times
     times = stage_times(node, label)
@@ -419,11 +728,23 @@ def main() -> int:
         "route": "cuda",
         "source": "ohm_tsd_slam_tpu_torch/csrc/push.cu",
         "replaces": "ohm_tsd_slam_tpu/ops/push_pallas.py:272",
-        "launches": launches,
+        "launches": launches["push"],
         "max_abs_err": check["three_poses"]["max_abs_err"],
         "ms": times["push kernel (push_cuda: tile cull + copy + kernel)"],
         "plain_ms": times["push plain (grid/push.py::push on the card)"],
     }]
+    for (name, fn, replaces), tag in zip(CASTER, "ABCD"):
+        key = next(k for k in times if k.startswith(f"{tag} {name} kernel"))
+        kernels.append({
+            "name": fn,
+            "route": "cuda",
+            "source": f"ohm_tsd_slam_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": caster_stats[name]["max_abs_err"],
+            "ms": times[key],
+            "plain_ms": times[key.replace(" kernel", " plain")],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

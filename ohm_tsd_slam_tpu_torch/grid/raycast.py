@@ -43,6 +43,9 @@ class RaycastResult(NamedTuple):
     normals: torch.Tensor   # [B, 2] surface normals in the sensor frame
     mask: torch.Tensor      # [B]    beam produced a valid model point
     ranges: torch.Tensor    # [B]    |coords|
+    # beams or segments the fast caster lost to a fixed capacity (int64;
+    # grid/raycast_fast.py); 0 for the exact march
+    n_dropped: torch.Tensor
 
 
 def _num_steps(geom: SensorPolar2D, grid: TsdGrid) -> int:
@@ -55,21 +58,39 @@ def _first_true(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.uint8).argmax(dim=-1)
 
 
-def raycast(grid: TsdGrid, geom: SensorPolar2D,
-            pose: torch.Tensor) -> RaycastResult:
-    """Render the model scan for all beams from `pose`
-    (RayCastPolar2D::calcCoordsFromCurrentViewMask,
-    RayCastPolar2D.cpp:113-192): beam-aligned outputs plus a mask."""
+def first_event(v: torch.Tensor, t: torch.Tensor, idx_max: torch.Tensor):
+    """The march's first sign change over the sample pairs (k, k+1) of
+    [B, K+1] samples `v` at steps `t` (RayCastPolar2D.cpp:237-270): the
+    loop runs while i = t - 1 <= idx_max; +→− is a hit, −→+ a back face,
+    a NaN sample neither.  Returns (hit [B], any_ev [B], k [B, 1] the
+    pair's index, 0 without an event, interp [B] its sub-step fraction)."""
+    step_valid = (t[:, 1:] - 1.0) <= idx_max[:, None]    # [B, K]
+    v_prev = v[:, :-1]
+    v_cur = v[:, 1:]
+    ev_pos = (v_prev > 0) & (v_cur < 0) & step_valid
+    ev_neg = (v_prev < 0) & (v_cur > 0) & step_valid
+    ev = ev_pos | ev_neg
+    any_ev = ev.any(dim=1)
+    k = _first_true(ev)[:, None]                         # first event
+    hit = any_ev & torch.gather(ev_pos, 1, k)[:, 0]
+    vp = torch.gather(v_prev, 1, k)[:, 0]
+    vc = torch.gather(v_cur, 1, k)[:, 0]
+    return hit, any_ev, k, vp / (vp - vc)
+
+
+def beam_geometry(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor):
+    """World-frame beam step vectors (one cell per step) and the per-beam
+    march range, by slab clipping to the grid and the min/max range
+    (RayCastPolar2D.cpp:200-221).
+
+    Returns (ray [B,2], tr [2], idx_min [B], idx_max [B], feasible [B])."""
     dtype = grid.tsd.dtype
-    dev = grid.tsd.device
     s = grid.cell_size
     pose = pose.to(dtype)
-
-    rays_local = geom.rays_local(dtype, dev)             # [B, 2] unit
+    rays_local = geom.rays_local(dtype, grid.tsd.device)    # [B, 2] unit
     ray = se2.rotate_vectors(pose, rays_local) * s       # 1 cell per step
     tr = se2.translation(pose)
 
-    # ---- slab clipping (RayCastPolar2D.cpp:200-221) ---------------------
     inside = grid.is_inside(tr)
     # defaults: inside → (-1e10, +1e10); outside → inverted, so
     # idx_min >= idx_max unless both slabs override (RayCastPolar2D.cpp:42-60)
@@ -94,7 +115,17 @@ def raycast(grid: TsdGrid, geom: SensorPolar2D,
     idx_min = torch.maximum(xmin, ymin).clamp(min=0.0)
     idx_min = idx_min.clamp(min=geom.min_range / s)
     idx_max = torch.minimum(xmax, ymax).clamp(max=geom.max_range / s)
-    feasible = idx_min < idx_max
+    return ray, tr, idx_min, idx_max, idx_min < idx_max
+
+
+def raycast(grid: TsdGrid, geom: SensorPolar2D,
+            pose: torch.Tensor) -> RaycastResult:
+    """Render the model scan for all beams from `pose`
+    (RayCastPolar2D::calcCoordsFromCurrentViewMask,
+    RayCastPolar2D.cpp:113-192): beam-aligned outputs plus a mask."""
+    dtype = grid.tsd.dtype
+    dev = grid.tsd.device
+    ray, tr, idx_min, idx_max, feasible = beam_geometry(grid, geom, pose)
 
     # ---- coarse skip over empty/invalid tiles ---------------------------
     # (RayCastPolar2D.cpp:224-235): advance in tile-size steps while the
@@ -123,33 +154,26 @@ def raycast(grid: TsdGrid, geom: SensorPolar2D,
     pos = tr + t[..., None] * ray[:, None, :]            # [B, K+1, 2]
     tsd, code = interpolate_bilinear(grid, pos)
     v = torch.where(code == INTERPOLATE_SUCCESS, tsd, math.nan)
-
-    # the loop runs while i = idx_start + (k-1) <= idx_max
-    step_valid = (t[:, 1:] - 1.0) <= idx_max[:, None]    # [B, K]
-    v_prev = v[:, :-1]
-    v_cur = v[:, 1:]
-    ev_pos = (v_prev > 0) & (v_cur < 0) & step_valid
-    ev_neg = (v_prev < 0) & (v_cur > 0) & step_valid
-    ev = ev_pos | ev_neg
-    any_ev = ev.any(dim=1)
-    k_ev = _first_true(ev)[:, None]                      # first event
-    hit = any_ev & torch.gather(ev_pos, 1, k_ev)[:, 0]
-
-    vp = torch.gather(v_prev, 1, k_ev)[:, 0]
-    vc = torch.gather(v_cur, 1, k_ev)[:, 0]
-    interp = vp / (vp - vc)
+    hit, _, k_ev, interp = first_event(v, t, idx_max)
     pos_ev = torch.gather(pos[:, 1:, :], 1,
                           k_ev[:, :, None].expand(-1, 1, 2))[:, 0, :]
     coords_w = pos_ev + ray * (interp[:, None] - 1.0)
 
     normals_w, n_ok = interpolate_normal(grid, coords_w)
-    mask = feasible & hit & n_ok
+    return sensor_frame(pose.to(dtype), coords_w, normals_w,
+                        feasible & hit & n_ok,
+                        torch.zeros((), dtype=torch.int64, device=dev))
 
-    # ---- sensor-frame outputs (RayCastPolar2D.cpp:168-177) --------------
+
+def sensor_frame(pose: torch.Tensor, coords_w: torch.Tensor,
+                 normals_w: torch.Tensor, mask: torch.Tensor,
+                 n_dropped: torch.Tensor) -> RaycastResult:
+    """World-frame model points to the beam-aligned sensor-frame result,
+    zero where `mask` is False (RayCastPolar2D.cpp:168-177)."""
     Tinv = se2.invert(pose)
     coords_s = se2.transform_points(Tinv, coords_w)
     normals_s = se2.rotate_vectors(Tinv, normals_w)
     coords_s = torch.where(mask[:, None], coords_s, 0.0)
     normals_s = torch.where(mask[:, None], normals_s, 0.0)
     ranges = torch.sqrt(torch.sum(coords_s * coords_s, dim=-1))
-    return RaycastResult(coords_s, normals_s, mask, ranges)
+    return RaycastResult(coords_s, normals_s, mask, ranges, n_dropped)

@@ -2,20 +2,24 @@
 
 Each kernel source in ../csrc/ is compiled by nvcc into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds)
-and loaded with ctypes.  Libraries go to ohm_tsd_slam_tpu_torch/_build/;
-a source newer than its library is rebuilt.  Nothing is built at import
-time: `load` runs at a kernel's first launch.  A missing nvcc or a failed
-build raises.
+and loaded with ctypes.  Libraries go to ohm_tsd_slam_tpu_torch/_build/,
+named after the source and a hash of its nvcc command line
+(lib<name>-<hash>.so), so a change of flags builds a new library; a
+source newer than its library is rebuilt.  Nothing is built at import
+time: `load` runs at a kernel's first launch, and `build_all` compiles
+several sources at once, one nvcc process each.  A missing nvcc or a
+failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Iterable, List
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -23,6 +27,18 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# The fast caster's kernels must round as their torch twins do: no FMA
+# contraction (a*b - c*d fused moves a cross product or a bilinear blend
+# by an ulp, and a sample near zero can flip an event), IEEE division and
+# square root, no flush of denormals.
+_IEEE = ["-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false"]
+KERNEL_FLAGS: Dict[str, List[str]] = {
+    "segment_layers": _IEEE,
+    "pack_rows": _IEEE,
+    "segment_min": _IEEE,
+    "window_replay": _IEEE,
+}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -41,27 +57,60 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu into _build/lib<name>.so unless the library
-    is newer than its source; returns the library path."""
+def _flags(name: str) -> List[str]:
+    return [*NVCC_FLAGS, *KERNEL_FLAGS.get(name, [])]
+
+
+def lib_path(name: str) -> str:
+    tag = hashlib.sha1(" ".join(_flags(name)).encode()).hexdigest()[:10]
+    return os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
+
+
+def _fresh(name: str) -> bool:
+    lib = lib_path(name)
     src = os.path.join(CSRC_DIR, name + ".cu")
-    lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if (os.path.exists(lib)
-            and os.path.getmtime(lib) >= os.path.getmtime(src)):
-        return lib
+    return (os.path.exists(lib)
+            and os.path.getmtime(lib) >= os.path.getmtime(src))
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Compile csrc/<name>.cu into lib_path(name) for each stale
+    library, all nvcc processes started together."""
+    todo = [n for n in names if not _fresh(n)]
+    if not todo:
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{src}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent build never loads a partial file
-    return lib
+    nvcc = find_nvcc()
+    procs = []
+    for name in todo:
+        tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+        cmd = [nvcc, *_flags(name), "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}) building "
+                          f"csrc/{name}.cu:\n{out}")
+        else:
+            # atomic: a concurrent build never loads a partial file
+            os.replace(tmp, lib_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless its library is fresh; returns the
+    library path."""
+    build_all([name])
+    return lib_path(name)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed, then load (once per process) lib<name>.so."""
+    """Build if needed, then load (once per process) lib_path(name)."""
     with _lock:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(build(name))

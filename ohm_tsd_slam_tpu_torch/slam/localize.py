@@ -3,7 +3,8 @@ ohm_tsd_slam_tpu/slam/localize.py).
 
 The body of ThreadLocalize::eventLoop (ThreadLocalize.cpp:310-409) over
 the grid state:
-  * model rendering with the exact raycast              (:353)
+  * model rendering with the isocontour caster
+    (grid/raycast_fast.py, the default) or the exact march  (:353)
   * scene conversion                                   (:328-329,361)
   * ICP registration                                   (:513-591)
   * registration error gate ‖t‖ > trnsMax or
@@ -12,9 +13,14 @@ the grid state:
   * significance gate for map updates
     (|sin Δφ| > ROT_MIN or ‖Δt‖ > TRNS_MIN)             (:402,728-736)
 
+`localize_step` renders with `raycast_fast` unguarded and reports what
+the caster lost to its fixed capacities in `rays_dropped`; the node reads
+it with the gate flags and re-runs the step with the exact march when it
+is nonzero (slam/node.py), which gives the JAX package's guarded result
+(`raycast_checked` there) without another read of the device.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-queue-1 item): the fast caster, the other registration modes and the
-odometry rescue.
+queue-1 item): the other registration modes and the odometry rescue.
 """
 
 from __future__ import annotations
@@ -31,6 +37,10 @@ from ohm_tsd_slam_tpu_torch.config import (
     RegMode,
 )
 from ohm_tsd_slam_tpu_torch.grid.raycast import raycast
+from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
+    SegmentCache,
+    raycast_fast,
+)
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams, icp
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
@@ -91,6 +101,11 @@ class LocalizeResult(NamedTuple):
     scene_valid: torch.Tensor   # number of valid scene points
     rms: torch.Tensor
     icp_iterations: torch.Tensor
+    # segments or beams the fast caster lost to its fixed capacities, or
+    # every beam for a stale segment cache (int64; 0 for the exact march).
+    # Nonzero means the model scan may miss beams: the node re-renders
+    # with the exact march.
+    rays_dropped: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -104,15 +119,11 @@ class LocalizeParams:
     rot_max: float = 0.17
     trns_min: float = 0.05
     rot_min: float = 0.03
-    # the JAX package defaults to its splat+refine caster; the port
-    # renders with the exact march until that caster is ported
-    fast_raycast: bool = False
+    # the isocontour caster (grid/raycast_fast.py) instead of the exact
+    # march, as in the JAX package
+    fast_raycast: bool = True
 
     def __post_init__(self):
-        if self.fast_raycast:
-            raise NotImplementedError(
-                "fast_raycast: the fast caster is not ported yet (ROADMAP.md "
-                "queue 1 items 6-7); use the exact march (False)")
         if self.mode != int(RegMode.ICP):
             mode = RegMode(self.mode)
             raise NotImplementedError(
@@ -135,14 +146,13 @@ class LocalizeParams:
             rot_max=reg.rot_thresh,
             trns_min=reg.trns_min,
             rot_min=reg.rot_min,
-            fast_raycast=False,
         )
 
 
 def localize_step(grid: TsdGrid, pose: torch.Tensor,
                   last_pose: torch.Tensor, data: torch.Tensor,
-                  mask: torch.Tensor,
-                  params: LocalizeParams) -> LocalizeResult:
+                  mask: torch.Tensor, params: LocalizeParams,
+                  segments: Optional[SegmentCache] = None) -> LocalizeResult:
     """One ICP-mode localization cycle.  Reads nothing back to the host.
 
     Args:
@@ -151,10 +161,16 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
       last_pose: pose at the last map update (significance reference).
       data, mask: masked scan (after standard_mask / clamp_min_range).
       params: static parameters.
+      segments: optional extract_segments() cache for THIS grid version
+        (the node keeps one per map update); without it the fast caster
+        extracts inline.
     """
     geom = params.geom
     scene, scene_mask = data_to_cartesian(geom, data, mask)
-    model = raycast(grid, geom, pose)
+    if params.fast_raycast:
+        model = raycast_fast(grid, geom, pose, segments=segments)
+    else:
+        model = raycast(grid, geom, pose)
     T_init = torch.eye(3, dtype=scene.dtype, device=scene.device)
     icp_res = icp(model.coords, model.mask, scene, scene_mask,
                   params.icp, T_init=T_init, sensor_pose=pose,
@@ -172,4 +188,5 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
     return LocalizeResult(
         pose=new_pose, T=T, reg_error=err, significant=significant,
         model_valid=model_valid, scene_valid=scene_mask.sum(),
-        rms=icp_res.rms, icp_iterations=icp_res.iterations)
+        rms=icp_res.rms, icp_iterations=icp_res.iterations,
+        rays_dropped=model.n_dropped)

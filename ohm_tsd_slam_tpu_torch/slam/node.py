@@ -13,7 +13,11 @@ never write into a grid a reader may hold), and the three roles are:
   * occupancy publication (ThreadGrid) — `GridPublisher` on a timer.
 
 `process_scan` reads the device twice per scan, as the JAX node does: the
-two gate flags, then the accepted pose.
+two gate flags with the fast caster's drop count, then the accepted pose.
+A nonzero drop count re-runs the step with the exact march (the JAX
+node's guarded raycast_checked), which costs a third read on that scan
+only.  The fast caster's segment extraction runs once per grid version,
+after the mapper drain that made it, and every scan reuses it.
 
     node = SlamNode(from_flat_params({...}), dtype=torch.float32,
                     device="cuda")
@@ -38,6 +42,11 @@ from ohm_tsd_slam_tpu_torch.config import RobotConfig, SlamConfig
 from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid import state as grid_state
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
+from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
+    SegmentCache,
+    extract_segments,
+    is_stale,
+)
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
     SensorPolar2D,
     clamp_min_range,
@@ -84,6 +93,9 @@ class Localizer:
     scan_channel: native.Channel = field(
         default_factory=lambda: native.Channel(native.MAILBOX))
     last_result: Optional[PoseStamped] = None
+    # the fast caster's drop count on the last scan (nonzero: that scan
+    # was re-rendered with the exact march)
+    rays_dropped: int = 0
     # tf chain for the map->odom correction (sendTransform,
     # ThreadLocalize.cpp:604-689): static laser->footprint and the latest
     # footprint->odom transform, fed by set_static_tf / on_footprint_odom
@@ -126,6 +138,20 @@ class SlamNode:
         # tf broadcast sink (map->odom correction, sendTransform
         # ThreadLocalize.cpp:604-689 / sendNanTransform :691-713)
         self.tf_callbacks: List[Callable[[int, Transform2D], None]] = []
+        # the fast caster's per-grid-version isocontour cache
+        self._seg_lock = threading.Lock()
+        self._segments: Optional[SegmentCache] = None
+
+    def _segments_for(self, grid) -> SegmentCache:
+        """extract_segments() of `grid`, memoized on the field it came
+        from (grid/raycast_fast.py::is_stale: tensor identity and
+        version)."""
+        with self._seg_lock:
+            seg = self._segments
+            if seg is None or is_stale(seg, grid):
+                seg = extract_segments(grid)
+                self._segments = seg
+            return seg
 
     # ------------------------------------------------------------------
     # control (start_stop_slam service, SlamNode.cpp:159-189)
@@ -183,6 +209,8 @@ class SlamNode:
             with self._grid_lock:
                 self.grid = grid
         loc.initialized = True
+        if loc.params.fast_raycast:
+            self._segments_for(grid)
 
     def _preprocess(self, loc: Localizer, ranges: np.ndarray):
         """laserCallBack clamp + standard mask
@@ -212,11 +240,29 @@ class SlamNode:
         data, mask = self._preprocess(loc, ranges)
         with self._grid_lock:
             grid = self.grid
+        params = loc.params
+        seg = self._segments_for(grid) if params.fast_raycast else None
         res = localize_step(grid, loc.pose, loc.last_pose, data, mask,
-                            loc.params)
+                            params, segments=seg)
 
-        reg_error, significant = torch.stack(
-            [res.reg_error, res.significant]).tolist()
+        reg_error, significant, n_over = torch.stack(
+            [res.reg_error.to(torch.int64), res.significant.to(torch.int64),
+             res.rays_dropped.to(torch.int64)]).tolist()
+        if n_over > 0:
+            # the fast caster lost segments or beams to a fixed capacity
+            # (or its cache was stale): re-render with the exact march, as
+            # the JAX node's raycast_checked does, and log the pressure
+            # (RayCastPolar2D's degradation warning analogue,
+            # ThreadLocalize.cpp:354-358)
+            native.log(native.LOG_WARN, "localize",
+                       f"fast raycast overflowed by {n_over} "
+                       "segments/beams; exact-march fallback used")
+            res = localize_step(
+                grid, loc.pose, loc.last_pose, data, mask,
+                dataclasses.replace(params, fast_raycast=False))
+            reg_error, significant = torch.stack(
+                [res.reg_error, res.significant]).tolist()
+        loc.rays_dropped = n_over
         if reg_error:
             pose_msg = PoseStamped(math.nan, math.nan, math.nan,
                                    stamp=scan.stamp)
@@ -287,6 +333,8 @@ class SlamNode:
             grid = self.mapper.drain(grid)
             with self._grid_lock:
                 self.grid = grid
+            if self._segments is not None:    # the fast caster is in use
+                self._segments_for(grid)
 
     def publish_map(self, stamp: float = 0.0):
         """ThreadGrid cycle on the current grid state."""

@@ -85,3 +85,46 @@ def simulate_scan(pose: np.ndarray, size: int, angular_res: float,
         if t_best <= max_range:
             ranges[i] = t_best
     return ranges
+
+
+# ---------------------------------------------------------------------------
+# synthetic TSD fields for the fast caster (grid/raycast_fast.py)
+# ---------------------------------------------------------------------------
+
+def sliver_field(cells: int, sliver_col: int, wall_col: int,
+                 depth: float = -0.2, rows=None) -> np.ndarray:
+    """[cells, cells] field: free space (+1) but for one column of cells
+    at `sliver_col` of value `depth` (in the row range `rows`, default
+    all) and a solid wall (-1) from column `wall_col` on.  The sliver's
+    negative band is narrower than a cell (|depth| / (1 + |depth|) of
+    one), so the march can step over it without a sign change: a beam
+    that does must go on to the wall, which the fast caster finds only in
+    its later candidate rounds."""
+    f = np.ones((cells, cells))
+    r0, r1 = rows if rows is not None else (0, cells)
+    f[r0:r1, sliver_col] = depth
+    f[:, wall_col:] = -1.0
+    return f
+
+
+def noise_field(cells: int, seed: int = 0,
+                nan_fraction: float = 0.1) -> np.ndarray:
+    """[cells, cells] field of uniform noise in [-1, 1] with a share of
+    NaN cells: nearly every quad is crossed, so the isocontour segments
+    exceed any fixed capacity."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(-1.0, 1.0, (cells, cells))
+    f[rng.random((cells, cells)) < nan_fraction] = np.nan
+    return f
+
+
+def field_arrays(tsd: np.ndarray, cell_size: float, tile_dim: int = 32,
+                 max_truncation: float = 0.1, max_weight: float = 300.0):
+    """A grid state dict (grid/state.py::from_arrays) holding `tsd`, with
+    every tile initialized and unit weights."""
+    tiles = tsd.shape[0] // tile_dim
+    return dict(tsd=tsd, weight=np.ones_like(tsd),
+                tile_init=np.ones((tiles, tiles), bool),
+                tile_initw=np.zeros((tiles, tiles), tsd.dtype),
+                cell_size=cell_size, max_truncation=max_truncation,
+                max_weight=max_weight, tile_dim=tile_dim)

@@ -1,8 +1,10 @@
 """The whole ICP-mode slice of the PyTorch port: the 25-scan golden loop
 replayed through the port's SlamNode (float64, CPU), held against the
 compiled C++ reference (golden/data/slam.bin) and against the JAX
-SlamNode rendering with the same exact march; plus the node's tf chain,
-NaN sentinel, unported options and threaded runtime on a small room."""
+SlamNode, once with the exact march on both sides and once with both
+packages' defaults (the isocontour caster, grid/raycast_fast.py); plus
+the node's segment cache and overflow fallback, tf chain, NaN sentinel,
+unported options and threaded runtime on a small room."""
 
 import dataclasses
 import math
@@ -19,11 +21,14 @@ from ohm_tsd_slam_tpu.slam import LaserScan as JLaserScan
 from ohm_tsd_slam_tpu.slam import SlamNode as JSlamNode
 from ohm_tsd_slam_tpu.slam import localize as jlocalize
 from ohm_tsd_slam_tpu_torch import config as tcfg
+from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
 from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid.push import push
 from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
 from ohm_tsd_slam_tpu_torch.slam import LaserScan, LocalizeParams, SlamNode
+from ohm_tsd_slam_tpu_torch.slam import localize as tlocalize
+from ohm_tsd_slam_tpu_torch.slam import node as tnode
 from ohm_tsd_slam_tpu_torch.slam.messages import PoseStamped
 from ohm_tsd_slam_tpu_torch.utils.testing import rect_walls, simulate_scan
 
@@ -32,9 +37,21 @@ from golden_io import GOLDEN_DIR, load_golden
 SLAM_BIN = os.path.join(GOLDEN_DIR, "data", "slam.bin")
 SLAM_NPZ = os.path.join(GOLDEN_DIR, "data", "slam_inputs.npz")
 
-# float64 replay; the port renders with the same exact march as both
-# references, so only last-bit rounding separates the pose traces
+# float64 replay; the port renders with the same exact march (or the same
+# isocontour caster) as both references, so only last-bit rounding
+# separates the pose traces
 POSE_TOL = 1e-6
+
+
+def _exact_march(params_cls, monkeypatch):
+    """Make `params_cls.from_config` render with the exact march."""
+    from_config = params_cls.from_config
+
+    def exact_march(*args, **kwargs):
+        return dataclasses.replace(from_config(*args, **kwargs),
+                                   fast_raycast=False)
+
+    monkeypatch.setattr(params_cls, "from_config", staticmethod(exact_march))
 
 
 def _golden_config(cfg):
@@ -102,14 +119,29 @@ def _assert_traces_close(got, want):
 
 @pytest.fixture(scope="module")
 def port_replay():
+    """The port's replay with the exact march."""
+    with pytest.MonkeyPatch.context() as mp:
+        _exact_march(tlocalize.LocalizeParams, mp)
+        node = SlamNode(_golden_config(tcfg), dtype=torch.float64)
+        assert node.mapper._push_fn is push     # CPU grid: the plain push
+        out = _replay(node, LaserScan)
+    assert not node.localizers[0].params.fast_raycast
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_replay_fast():
+    """The port's replay at its defaults: the isocontour caster."""
     node = SlamNode(_golden_config(tcfg), dtype=torch.float64)
-    assert node.mapper._push_fn is push     # CPU grid: the plain push
-    return _replay(node, LaserScan)
+    out = _replay(node, LaserScan)
+    assert node.localizers[0].params.fast_raycast
+    assert node.localizers[0].rays_dropped == 0
+    return out
 
 
-def test_golden_replay_matches_reference(port_replay):
+def _assert_matches_reference(replay):
     golden = load_golden(SLAM_BIN)
-    poses, sig, err = port_replay
+    poses, sig, err = replay
     flags = np.asarray(golden["flags"])
     np.testing.assert_array_equal(err, flags[:, 0], err_msg="error gates")
     assert err.sum() == 0
@@ -119,22 +151,77 @@ def test_golden_replay_matches_reference(port_replay):
         poses, np.asarray(golden["pose_trace"]).reshape(-1, 3, 3))
 
 
-def test_golden_replay_matches_jax_node(port_replay, monkeypatch):
-    from_config = jlocalize.LocalizeParams.from_config
-
-    def exact_march(*args, **kwargs):
-        return dataclasses.replace(from_config(*args, **kwargs),
-                                   fast_raycast=False)
-
-    monkeypatch.setattr(jlocalize.LocalizeParams, "from_config",
-                        staticmethod(exact_march))
+def _assert_matches_jax_node(replay, fast):
     jnode = JSlamNode(_golden_config(jcfg), dtype=jnp.float64)
     jposes, jsig, jerr = _replay(jnode, JLaserScan)
-    assert not jnode.localizers[0].params.fast_raycast
-    poses, sig, err = port_replay
+    assert jnode.localizers[0].params.fast_raycast == fast
+    poses, sig, err = replay
     np.testing.assert_array_equal(err, jerr)
     np.testing.assert_array_equal(sig, jsig)
     _assert_traces_close(poses, jposes)
+
+
+def test_golden_replay_matches_reference(port_replay):
+    _assert_matches_reference(port_replay)
+
+
+def test_golden_replay_matches_jax_node(port_replay, monkeypatch):
+    _exact_march(jlocalize.LocalizeParams, monkeypatch)
+    _assert_matches_jax_node(port_replay, fast=False)
+
+
+def test_golden_replay_fast_matches_reference(port_replay_fast):
+    _assert_matches_reference(port_replay_fast)
+
+
+def test_golden_replay_fast_matches_jax_node(port_replay_fast):
+    """Both nodes at their defaults: the fast caster on both sides."""
+    _assert_matches_jax_node(port_replay_fast, fast=True)
+
+
+def test_node_extracts_once_per_grid_version(monkeypatch):
+    """The segment cache is rebuilt after each mapper drain (and the
+    initial push) and reused by every scan in between."""
+    calls = []
+    extract = tnode.extract_segments
+
+    def counted(grid, *a, **k):
+        calls.append(grid.tsd)
+        return extract(grid, *a, **k)
+
+    monkeypatch.setattr(tnode, "extract_segments", counted)
+    node = SlamNode(ROOM_CFG, dtype=torch.float64)
+    pushes = 0
+    for k in range(6):
+        before = node.grid.tsd
+        node.process_scan(0, _room_scan(5.12 + 0.03 * k, float(k)))
+        pushes += node.grid.tsd is not before
+        assert node._segments.tsd is node.grid.tsd
+    assert pushes >= 3
+    assert len(calls) == pushes                 # init push included
+    assert len({id(t) for t in calls}) == len(calls)
+
+
+def test_node_overflow_reruns_exact_march(monkeypatch):
+    """A segment overflow on every scan: the node re-runs the step with
+    the exact march, so its trace is the exact-march node's, bit for
+    bit, and the drop count is kept on the localizer."""
+    scans = [_room_scan(5.12 + 0.03 * k, float(k)) for k in range(5)]
+    with pytest.MonkeyPatch.context() as mp:
+        _exact_march(tlocalize.LocalizeParams, mp)
+        exact = SlamNode(ROOM_CFG, dtype=torch.float64)
+        want = []
+        for msg in scans:
+            exact.process_scan(0, msg)
+            want.append(exact.localizers[0].pose.clone())
+    monkeypatch.setattr(rf, "MAX_SEGMENTS", 128)
+    node = SlamNode(ROOM_CFG, dtype=torch.float64)
+    for msg, pose in zip(scans, want):
+        node.process_scan(0, msg)
+        assert torch.equal(node.localizers[0].pose, pose)
+    loc = node.localizers[0]
+    assert loc.params.fast_raycast and loc.rays_dropped > 0
+    assert int(node._segments.n_dropped) > 0
 
 
 # a small room run (tests/test_slam_e2e.py's settings)
@@ -201,7 +288,6 @@ def test_registration_error_gives_nan_sentinel():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"fast_raycast": True}, "items 6-7"),
     ({"mode": 3}, "item 11"),
     ({"mode": 1}, "item 12"),
     ({"mode": 4}, "item 13"),
@@ -211,6 +297,18 @@ def test_unported_options_raise(kwargs, item):
                          max_range=RMAX)
     with pytest.raises(NotImplementedError, match=item):
         LocalizeParams(geom=geom, icp=IcpParams(), **kwargs)
+
+
+def test_from_config_uses_fast_caster():
+    """The fast caster is the default renderer, as in the JAX package."""
+    rc = ROOM_CFG.robots[0]
+    geom = SensorPolar2D(size=BEAMS, angular_res=RES, phi_min=PHI0,
+                         max_range=RMAX)
+    params = LocalizeParams.from_config(rc.registration, geom)
+    jparams = jlocalize.LocalizeParams.from_config(
+        jcfg.RegistrationConfig(), geom)
+    assert params.fast_raycast and jparams.fast_raycast
+    assert LocalizeParams(geom=geom, icp=IcpParams()).fast_raycast
 
 
 def test_odom_rescue_raises():
