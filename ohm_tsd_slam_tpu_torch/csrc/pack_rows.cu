@@ -11,7 +11,8 @@
 //
 // Design: three launches on one stream, no host sync.
 //   1. an exclusive scan of the 128-lane row counts that segment_layers
-//      wrote (one block; 32768 rows at 1024^2), which also stores the total;
+//      wrote (one block, csrc/scan_rows.cuh; 32768 rows at 1024^2), which
+//      also stores the total;
 //   2. one warp per row: rows without a set lane return at once (~99% of
 //      them); a set lane's slot is its row's offset plus the set lanes
 //      before it in the row (ballot + popc), and the lane computes its
@@ -31,37 +32,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "scan_rows.cuh"
+
 namespace {
 
 constexpr int kRow = 128;
-constexpr int kScanThreads = 1024;
-
-// Exclusive scan of row_cnt into row_off; total = the sum.
-__global__ void scan_rows_kernel(const int* __restrict__ row_cnt,
-                                 int* __restrict__ row_off,
-                                 int* __restrict__ total, int rows) {
-  __shared__ int part[kScanThreads];
-  const int per = (rows + kScanThreads - 1) / kScanThreads;
-  const int r0 = threadIdx.x * per;
-  const int r1 = min(r0 + per, rows);
-  int sum = 0;
-  for (int r = r0; r < r1; ++r) sum += row_cnt[r];
-  part[threadIdx.x] = sum;
-  __syncthreads();
-  // Hillis-Steele inclusive scan of the per-thread sums
-  for (int off = 1; off < kScanThreads; off <<= 1) {
-    const int add = threadIdx.x >= off ? part[threadIdx.x - off] : 0;
-    __syncthreads();
-    part[threadIdx.x] += add;
-    __syncthreads();
-  }
-  int run = part[threadIdx.x] - sum;  // exclusive
-  for (int r = r0; r < r1; ++r) {
-    row_off[r] = run;
-    run += row_cnt[r];
-  }
-  if (threadIdx.x == kScanThreads - 1) *total = part[kScanThreads - 1];
-}
 
 __device__ __forceinline__ bool crossing(float a, float b) {
   return (a > 0.0f && b < 0.0f) || (a < 0.0f && b > 0.0f);

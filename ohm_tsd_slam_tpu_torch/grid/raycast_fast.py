@@ -18,16 +18,18 @@ where a beam can hit first and replays the exact march only there:
      but have a later candidate (a double crossing inside one march step),
      at most UNRESOLVED_CAP of them per round; more count into n_dropped.
 
-The caster is the JAX package's TPU path with the four CUDA kernels of
-ops/ (segment layers, row pack, segment min, window replay) in place of its
-Pallas kernels, and it reads nothing back to the host: rounds 2..ROUNDS
-always run, cheaply (a resolved beam carries t_after = +inf through the
-candidate sweep, and the replays take UNRESOLVED_CAP compacted slots).
-Each kernel's plain twin lives here (`segment_layers_plain`,
-`pack_rows_plain`, `segment_min_plain`, `window_replay_plain`).  A wrapper
-launches its kernel for a CUDA tensor (which must be float32: it raises
-otherwise) and runs its twin for a CPU tensor, so a grid on the CPU, in
-float32 or float64, takes the same path on the twins.
+The caster is the JAX package's TPU path with the five CUDA kernels of
+ops/ (segment layers, row pack, segment min, window replay, and the channel
+compaction behind the extraction of grids narrower than the fused kernels
+take) in place of its Pallas kernels, and it reads nothing back to the
+host: rounds 2..ROUNDS always run, cheaply (a resolved beam carries
+t_after = +inf through the candidate sweep, and the replays take
+UNRESOLVED_CAP compacted slots).  Each kernel's plain twin lives here
+(`segment_layers_plain`, `pack_rows_plain`, `segment_min_plain`,
+`window_replay_plain`) or in grid/compact.py (`pack_channels_rows`).  A
+wrapper launches its kernel for a CUDA tensor (which must be float32: it
+raises otherwise) and runs its twin for a CPU tensor, so a grid on the CPU,
+in float32 or float64, takes the same path on the twins.
 
 A SegmentCache is tied to the tensor it was extracted from: a cache whose
 `tsd` is not the grid's, or whose version differs, is stale and counts as a
@@ -306,37 +308,64 @@ def pack_segments(p0: torch.Tensor, p1: torch.Tensor, valid: torch.Tensor):
 
 
 class CasterKernels(NamedTuple):
-    """The four kernels of the kernel path: the CUDA wrappers of ops/
+    """The five kernels of the kernel path: the CUDA wrappers of ops/
     (`cuda_kernels`), or callables with their signatures."""
 
-    segment_layers: Callable   # ops/segment_layers_cuda.py (kernel A)
-    pack_rows: Callable        # ops/pack_rows_cuda.py (kernel B)
-    segment_min: Callable      # ops/segment_min_cuda.py (kernel C)
-    window_replay: Callable    # ops/window_replay_cuda.py (kernel D)
+    segment_layers: Callable    # ops/segment_layers_cuda.py (kernel A)
+    pack_rows: Callable         # ops/pack_rows_cuda.py (kernel B)
+    segment_min: Callable       # ops/segment_min_cuda.py (kernel C)
+    window_replay: Callable     # ops/window_replay_cuda.py (kernel D)
+    compact_channels: Callable  # ops/compact_channels_cuda.py (kernel E)
 
 
 def cuda_kernels() -> CasterKernels:
+    from ohm_tsd_slam_tpu_torch.ops.compact_channels_cuda import (
+        compact_channels,
+    )
     from ohm_tsd_slam_tpu_torch.ops.pack_rows_cuda import pack_rows
     from ohm_tsd_slam_tpu_torch.ops.segment_layers_cuda import segment_layers
     from ohm_tsd_slam_tpu_torch.ops.segment_min_cuda import segment_min
     from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import window_replay
 
     return CasterKernels(segment_layers, pack_rows, segment_min,
-                         window_replay)
+                         window_replay, compact_channels)
+
+
+def fused_extraction(grid: TsdGrid) -> bool:
+    """True when kernels A and B take this grid: they walk the field in
+    128-lane rows, so its width must be a multiple of 128 (map_size >= 7).
+    Any other grid takes the general extraction."""
+    return grid.tsd.shape[1] % 128 == 0
+
+
+def _pack_fused(grid: TsdGrid, size: int, ks: CasterKernels):
+    """The [5, size + 128] segment pack and the segment count by kernel A
+    (segment layers), then kernel B (row pack, endpoints in-kernel)."""
+    mask, row_cnt = ks.segment_layers(grid)
+    return ks.pack_rows(grid, mask, row_cnt, size)
+
+
+def _pack_general(grid: TsdGrid, size: int, ks: CasterKernels):
+    """The same pack for any grid: the dense layers and their endpoint
+    channels in plain torch (as the JAX package runs them in XLA where
+    its fused kernels' gate fails), then kernel E compacts them."""
+    mask, chans = _segment_layers(grid)
+    return ks.compact_channels(mask, chans, size)
 
 
 def extract_segments(grid: TsdGrid, max_segments: Optional[int] = None,
                      kernels: Optional[CasterKernels] = None) -> SegmentCache:
-    """The pose-independent extraction for this grid version: kernel A
-    (segment layers), then kernel B (row pack).  `kernels` stands in for
-    the wrappers of cuda_kernels() (ops/kernel_check.py passes its
-    checked ones)."""
+    """The pose-independent extraction for this grid version, by the
+    fused kernels A and B where the grid's shape allows, else by the
+    dense layers and kernel E (`fused_extraction` chooses).  `kernels`
+    stands in for the wrappers of cuda_kernels() (ops/kernel_check.py
+    passes its checked ones)."""
     if max_segments is None:
         max_segments = MAX_SEGMENTS   # resolved at call time (patchable)
     S = max_segments
     ks = kernels or cuda_kernels()
-    mask, row_cnt = ks.segment_layers(grid)
-    packed, total = ks.pack_rows(grid, mask, row_cnt, S)
+    pack_fn = _pack_fused if fused_extraction(grid) else _pack_general
+    packed, total = pack_fn(grid, S, ks)
     p0 = packed[0:2, :S].t()
     p1 = packed[2:4, :S].t()
     valid = packed[4, :S] > 0.0

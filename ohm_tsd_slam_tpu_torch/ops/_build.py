@@ -5,7 +5,7 @@ with a plain C interface (no PyTorch headers, so a build takes seconds)
 and loaded with ctypes.  Libraries go to ohm_tsd_slam_tpu_torch/_build/,
 named after the source and a hash of its nvcc command line
 (lib<name>-<hash>.so), so a change of flags builds a new library; a
-source newer than its library is rebuilt.  Nothing is built at import
+source (or a shared header, csrc/*.cuh) newer than its library is rebuilt.  Nothing is built at import
 time: `load` runs at a kernel's first launch, and `build_all` compiles
 several sources at once, one nvcc process each.  A missing nvcc or a
 failed build raises.
@@ -14,6 +14,7 @@ failed build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -68,9 +69,10 @@ def lib_path(name: str) -> str:
 
 def _fresh(name: str) -> bool:
     lib = lib_path(name)
-    src = os.path.join(CSRC_DIR, name + ".cu")
+    srcs = [os.path.join(CSRC_DIR, name + ".cu"),
+            *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
     return (os.path.exists(lib)
-            and os.path.getmtime(lib) >= os.path.getmtime(src))
+            and os.path.getmtime(lib) >= max(map(os.path.getmtime, srcs)))
 
 
 def build_all(names: Iterable[str]) -> None:

@@ -1,4 +1,4 @@
-"""The fast caster's four CUDA kernels held against their plain twins on
+"""The fast caster's five CUDA kernels held against their plain twins on
 the card, at the inputs the caster itself gives them.
 
 `KernelCheck().kernels` is a grid/raycast_fast.py::CasterKernels whose
@@ -10,7 +10,8 @@ with the check at every call, the candidate rounds included.  Used by
 chip_smoke.py and tests/test_torch_raycast_kernels.py.
 
 Tolerances: the layer mask, its row counts, the candidates' finite
-pattern and the replay's events and flags must be equal; endpoints and
+pattern and the replay's events and flags must be equal; the channel
+compaction moves values and must equal its twin in every bit; endpoints and
 replay positions within POS_TOL, the sub-cell interpolation within
 INTERP_TOL and normals within NORMAL_TOL (the bounds
 tests/test_raycast_pallas.py:400-414 holds the Pallas replay to); the
@@ -25,6 +26,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ohm_tsd_slam_tpu_torch.grid.compact import pack_channels_rows
 from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
     CasterKernels,
     cuda_kernels,
@@ -57,7 +59,8 @@ class KernelCheck:
             for name in CasterKernels._fields}
         self.log: List[Tuple[str, float, dict]] = []
         self.kernels = CasterKernels(self._segment_layers, self._pack_rows,
-                                     self._segment_min, self._window_replay)
+                                     self._segment_min, self._window_replay,
+                                     self._compact_channels)
 
     def _note(self, name: str, err: float, ok: bool, **found) -> None:
         st = self.stats[name]
@@ -115,3 +118,23 @@ class KernelCheck:
                    events=int(ev.sum()),
                    hits=int((out_p[:, 0] > 0).sum()))
         return out
+
+    def _compact_channels(self, mask, channels, size):
+        packed, total = self._k.compact_channels(mask, channels, size)
+        packed_p, total_p = pack_channels_rows(mask, tuple(channels), size)
+        err = bit_mismatch(packed, packed_p)
+        self._note("compact_channels", err,
+                   err == 0.0 and int(total) == int(total_p),
+                   segments=int(total_p))
+        return packed, total
+
+
+def bit_mismatch(a: torch.Tensor, b: torch.Tensor) -> float:
+    """0.0 when the float32 tensors agree in every bit (NaN payloads and
+    signed zeros included), else the largest |a - b| where they differ
+    (inf where that is not a number)."""
+    differ = a.view(torch.int32) != b.view(torch.int32)
+    if not bool(differ.any()):
+        return 0.0
+    gap = torch.nan_to_num((a - b).abs(), nan=float("inf"))
+    return max(float(gap[differ].max()), float(torch.finfo(a.dtype).tiny))

@@ -12,6 +12,12 @@ from ohm_tsd_slam_tpu_torch.registration.nn import (
     assign_pairs_fused,
     nearest_neighbors,
 )
+from ohm_tsd_slam_tpu_torch.registration.ransac import (
+    RansacParams,
+    match_normal,
+    match_pdf,
+    match_tsd,
+)
 
 __all__ = [
     "IcpParams",
@@ -22,4 +28,8 @@ __all__ = [
     "point_to_line_2d",
     "assign_pairs_fused",
     "nearest_neighbors",
+    "RansacParams",
+    "match_normal",
+    "match_pdf",
+    "match_tsd",
 ]

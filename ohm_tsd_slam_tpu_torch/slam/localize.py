@@ -1,12 +1,13 @@
-"""Per-robot localization step (port of the ICP-mode path of
-ohm_tsd_slam_tpu/slam/localize.py).
+"""Per-robot localization step (port of ohm_tsd_slam_tpu/slam/localize.py
+for the registration modes ICP, EXP, PDF and TSD).
 
 The body of ThreadLocalize::eventLoop (ThreadLocalize.cpp:310-409) over
 the grid state:
   * model rendering with the isocontour caster
     (grid/raycast_fast.py, the default) or the exact march  (:353)
   * scene conversion                                   (:328-329,361)
-  * ICP registration                                   (:513-591)
+  * registration dispatch by mode: a RANSAC matcher's
+    transform (registration/ransac.py) seeds ICP       (:513-591)
   * registration error gate ‖t‖ > trnsMax or
     |sin Δφ| > rotMax → NaN pose sentinel              (:381-387,593-600)
   * pose update by right-multiplication                (:397)
@@ -20,7 +21,7 @@ is nonzero (slam/node.py), which gives the JAX package's guarded result
 (`raycast_checked` there) without another read of the device.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-queue-1 item): the other registration modes and the odometry rescue.
+queue-1 item): the modes GN and AMCL and the odometry rescue.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ohm_tsd_slam_tpu_torch.config import (
+    BeamModelConfig,
     OdomRescueConfig,
     RegistrationConfig,
     RegMode,
@@ -43,19 +45,24 @@ from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
 )
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams, icp
+from ohm_tsd_slam_tpu_torch.registration.ransac import (
+    RansacParams,
+    match_normal,
+    match_pdf,
+    match_tsd,
+)
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
     SensorPolar2D,
     data_to_cartesian,
 )
 
-# ROADMAP.md queue 1 item that ports each registration mode other than ICP
+# ROADMAP.md queue 1 item that ports each registration mode still missing
 _MODE_ITEM = {
-    RegMode.EXP: "queue 1 item 12 (the other matchers)",
-    RegMode.PDF: "queue 1 item 12 (the other matchers)",
-    RegMode.TSD: "queue 1 item 11 (TSD mode)",
     RegMode.GN: "queue 1 item 13 (differentiable render and Gauss-Newton)",
     RegMode.AMCL: "queue 1 item 12 (the other matchers)",
 }
+# the modes whose RANSAC matcher seeds ICP
+_RANSAC_MODES = (int(RegMode.EXP), int(RegMode.PDF), int(RegMode.TSD))
 
 
 def calc_angle_02pi(T: torch.Tensor) -> torch.Tensor:
@@ -122,13 +129,24 @@ class LocalizeParams:
     # the isocontour caster (grid/raycast_fast.py) instead of the exact
     # march, as in the JAX package
     fast_raycast: bool = True
+    # RANSAC pre-registration parameters (modes EXP/PDF/TSD) and the beam
+    # model of PDF; from_config fills both
+    ransac: Optional[RansacParams] = None
+    beam: Optional[BeamModelConfig] = None
 
     def __post_init__(self):
-        if self.mode != int(RegMode.ICP):
-            mode = RegMode(self.mode)
+        mode = RegMode(self.mode)
+        if mode in _MODE_ITEM:
             raise NotImplementedError(
                 f"registration mode {mode.name} is not ported yet "
-                f"(ROADMAP.md {_MODE_ITEM[mode]}); use ICP (0)")
+                f"(ROADMAP.md {_MODE_ITEM[mode]}); use ICP (0), EXP (1), "
+                "PDF (2) or TSD (3)")
+        if self.mode in _RANSAC_MODES and self.ransac is None:
+            raise ValueError(f"registration mode {mode.name} needs `ransac` "
+                             "(LocalizeParams.from_config fills it)")
+        if mode == RegMode.PDF and self.beam is None:
+            raise ValueError("registration mode PDF needs `beam` "
+                             "(LocalizeParams.from_config fills it)")
 
     @staticmethod
     def from_config(reg: RegistrationConfig, geom: SensorPolar2D,
@@ -146,14 +164,18 @@ class LocalizeParams:
             rot_max=reg.rot_thresh,
             trns_min=reg.trns_min,
             rot_min=reg.rot_min,
+            ransac=RansacParams.from_config(reg.ransac, geom.angular_res),
+            beam=reg.beam_model,
         )
 
 
 def localize_step(grid: TsdGrid, pose: torch.Tensor,
                   last_pose: torch.Tensor, data: torch.Tensor,
                   mask: torch.Tensor, params: LocalizeParams,
+                  T_prereg: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
                   segments: Optional[SegmentCache] = None) -> LocalizeResult:
-    """One ICP-mode localization cycle.  Reads nothing back to the host.
+    """One localization cycle.  Reads nothing back to the host.
 
     Args:
       grid: current map state.
@@ -161,6 +183,13 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
       last_pose: pose at the last map update (significance reference).
       data, mask: masked scan (after standard_mask / clamp_min_range).
       params: static parameters.
+      T_prereg: optional externally computed RANSAC seed (3,3); overrides
+        the matcher dispatch.
+      generator: the draw stream of the stochastic matchers (modes
+        EXP/PDF/TSD; doRegistration dispatch, ThreadLocalize.cpp:530-568),
+        on the grid's device.  The caller hands every scan a fresh stream
+        (SlamNode seeds one per robot and scan); in those modes a call
+        without one (and without T_prereg) raises.
       segments: optional extract_segments() cache for THIS grid version
         (the node keeps one per map update); without it the fast caster
         extracts inline.
@@ -171,7 +200,21 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
         model = raycast_fast(grid, geom, pose, segments=segments)
     else:
         model = raycast(grid, geom, pose)
-    T_init = torch.eye(3, dtype=scene.dtype, device=scene.device)
+
+    # registration: pre-match seed + ICP refinement
+    if T_prereg is not None:
+        T_init = T_prereg
+    elif params.mode == int(RegMode.EXP):
+        T_init = match_normal(generator, model.coords, model.mask,
+                              scene, scene_mask, params.ransac)
+    elif params.mode == int(RegMode.PDF):
+        T_init = match_pdf(generator, model.coords, model.mask,
+                           scene, scene_mask, params.ransac, params.beam)
+    elif params.mode == int(RegMode.TSD):
+        T_init = match_tsd(generator, grid, pose, model.coords, model.mask,
+                           scene, scene_mask, params.ransac)
+    else:
+        T_init = torch.eye(3, dtype=scene.dtype, device=scene.device)
     icp_res = icp(model.coords, model.mask, scene, scene_mask,
                   params.icp, T_init=T_init, sensor_pose=pose,
                   model_normals=model.normals)

@@ -1,5 +1,6 @@
 """The SLAM node: grid ownership, per-robot localizers, runtime loops
-(port of ohm_tsd_slam_tpu/slam/node.py for registration mode ICP).
+(port of ohm_tsd_slam_tpu/slam/node.py for the registration modes ICP,
+EXP, PDF and TSD).
 
 SlamNode + the ThreadSLAM architecture (src/SlamNode.cpp,
 src/ThreadSLAM.cpp).  The grid is a value swapped under a lock (updates
@@ -19,8 +20,13 @@ node's guarded raycast_checked), which costs a third read on that scan
 only.  The fast caster's segment extraction runs once per grid version,
 after the mapper drain that made it, and every scan reuses it.
 
-    node = SlamNode(from_flat_params({...}), dtype=torch.float32,
-                    device="cuda")
+The stochastic matchers (modes EXP/PDF/TSD) draw from a `torch.Generator`
+that the node seeds anew for every robot and scan from its one `seed`, as
+the JAX node folds robot and scan counter into its base key: a run is a
+function of the seed, and the exact-march re-run of a scan draws the same
+numbers as its first run.
+
+    node = SlamNode(from_flat_params({...}), dtype=torch.float32)
     node.process_scan(robot, LaserScan(...))
     node.publish_map()
 """
@@ -68,6 +74,11 @@ from ohm_tsd_slam_tpu_torch.slam.messages import (
 )
 
 
+# odd multiplier that folds (seed, robot, scan counter) into one 63-bit
+# generator seed; distinct for robots and scan counters below it
+_SEED_MIX = 1_000_003
+
+
 def _se2_np(x: float, y: float, yaw: float) -> np.ndarray:
     """float64 host-side SE(2) matrix for the tf chain."""
     c, s = math.cos(yaw), math.sin(yaw)
@@ -93,6 +104,9 @@ class Localizer:
     scan_channel: native.Channel = field(
         default_factory=lambda: native.Channel(native.MAILBOX))
     last_result: Optional[PoseStamped] = None
+    # scans localized so far: the position of the per-scan draw stream
+    # (the reference's matchers reseed rand() per call)
+    scan_count: int = 0
     # the fast caster's drop count on the last scan (nonzero: that scan
     # was re-rendered with the exact march)
     rays_dropped: int = 0
@@ -108,10 +122,21 @@ class Localizer:
 
 class SlamNode:
     def __init__(self, config: SlamConfig, dtype=torch.float32,
-                 device="cpu"):
+                 device=None, seed: int = 0):
+        """`device` None is the card ("cuda"), and raises where there is
+        none: the node runs on the CPU only for a caller who asks for it
+        (device="cpu", as the parity tests do)."""
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "SlamNode runs on the CUDA device by default and "
+                    "torch.cuda.is_available() is False; pass device=\"cpu\" "
+                    "to run on the CPU")
+            device = "cuda"
         self.config = config
         self.dtype = dtype
         self.device = torch.device(device)
+        self.seed = seed     # base of the per-robot, per-scan draw streams
         self.grid = grid_state.create(config.grid, dtype=dtype,
                                       device=self.device)
         # _grid_lock guards only the grid reference swap; _write_lock
@@ -152,6 +177,15 @@ class SlamNode:
                 seg = extract_segments(grid)
                 self._segments = seg
             return seg
+
+    def _draws(self, robot: int, scan_count: int) -> torch.Generator:
+        """The draw stream of scan `scan_count` of `robot`: a generator
+        on the node's device seeded from (seed, robot, scan counter).
+        Calling it again gives the same stream from its start."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(((self.seed * _SEED_MIX + robot) * _SEED_MIX
+                         + scan_count) % (1 << 63))
+        return gen
 
     # ------------------------------------------------------------------
     # control (start_stop_slam service, SlamNode.cpp:159-189)
@@ -242,8 +276,11 @@ class SlamNode:
             grid = self.grid
         params = loc.params
         seg = self._segments_for(grid) if params.fast_raycast else None
+        count = loc.scan_count
+        loc.scan_count += 1
         res = localize_step(grid, loc.pose, loc.last_pose, data, mask,
-                            params, segments=seg)
+                            params, generator=self._draws(robot, count),
+                            segments=seg)
 
         reg_error, significant, n_over = torch.stack(
             [res.reg_error.to(torch.int64), res.significant.to(torch.int64),
@@ -259,7 +296,8 @@ class SlamNode:
                        "segments/beams; exact-march fallback used")
             res = localize_step(
                 grid, loc.pose, loc.last_pose, data, mask,
-                dataclasses.replace(params, fast_raycast=False))
+                dataclasses.replace(params, fast_raycast=False),
+                generator=self._draws(robot, count))
             reg_error, significant = torch.stack(
                 [res.reg_error, res.significant]).tolist()
         loc.rays_dropped = n_over

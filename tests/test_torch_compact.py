@@ -1,8 +1,10 @@
 """The port's fixed-capacity compaction (ohm_tsd_slam_tpu_torch/grid/
 compact.py) against the JAX package's: compact_mask and the channels of
 pack_channels_rows against its compact_mask_values (gather path),
-pack_channels_rows against the Pallas pack kernel in interpret mode.
-Inputs are numpy from a seed; results must be bit-equal.
+pack_channels_rows against the Pallas pack kernel and against the Pallas
+compaction kernel (compact_channels_pallas, whose counterpart on the card
+is csrc/compact_channels.cu with pack_channels_rows as its twin), both in
+interpret mode.  Inputs are numpy from a seed; results must be bit-equal.
 
 Channels carry NaN and Inf (ROADMAP.md queue 3): the port passes them
 through untouched, where the JAX package's one-hot pick and one-hot pack
@@ -16,8 +18,13 @@ import pytest
 import torch
 
 from ohm_tsd_slam_tpu.grid import compact as jcompact
+from ohm_tsd_slam_tpu.ops.compact_pallas import (
+    R_BLK,
+    compact_channels_pallas,
+)
 from ohm_tsd_slam_tpu.ops.pack_rows_pallas import pack_channels_rows_pallas
 from ohm_tsd_slam_tpu_torch.grid import compact
+from ohm_tsd_slam_tpu_torch.ops.compact_channels_cuda import compact_channels
 
 CHUNK = 128
 
@@ -124,3 +131,55 @@ def test_pack_channels_rows_carries_nan_and_inf():
         jnp.asarray(mask), tuple(jnp.asarray(c) for c in chans), size)
     assert (np.isnan(np.asarray(jpack[0]))
             > np.isnan(got.numpy()[0])).any()
+
+
+@pytest.mark.parametrize("density,size,special", [
+    (0.002, 512, None), (0.0, 256, None), (0.01, 256, None),
+    (0.004, 1024, "unset")])
+def test_pack_channels_rows_matches_compact_pallas_kernel(density, size,
+                                                          special):
+    """Kernel E's twin against the TPU kernel it stands for
+    (compact_channels_pallas, interpret mode) at the smallest n its assert
+    allows: the count of set lanes, and the first `size` columns bit for
+    bit, overflow included (the third case)."""
+    rng = np.random.default_rng(int(density * 1000) + size)
+    n = R_BLK * CHUNK
+    mask = rng.random(n) < density
+    chans = _channels(rng, n, mask, special)
+    want, jcnt = compact_channels_pallas(
+        jnp.asarray(mask), tuple(jnp.asarray(c) for c in chans), size,
+        interpret=True)
+    got, cnt = compact.pack_channels_rows(
+        torch.from_numpy(mask), tuple(torch.from_numpy(c) for c in chans),
+        size)
+    assert int(cnt) == int(jcnt) == int(mask.sum())
+    assert got.shape == np.asarray(want).shape == (5, size + CHUNK)
+    np.testing.assert_array_equal(
+        got.numpy()[:, :size].view(np.int32),
+        np.asarray(want)[:, :size].view(np.int32))
+    if density == 0.01:
+        assert int(cnt) > size + CHUNK
+
+
+@pytest.mark.parametrize("as_float", [False, True])
+def test_compact_channels_wrapper_runs_the_twin_on_cpu(as_float):
+    """On CPU tensors the wrapper of kernel E is its twin, for a bool and
+    for a float 0/1 mask, any n % 128 == 0, NaN and Inf carried in their
+    own slots; no launch is counted."""
+    rng = np.random.default_rng(9)
+    n = 16384                             # a 64^2 grid's layer stack
+    mask = rng.random(n) < 0.05
+    chans = tuple(torch.from_numpy(c)
+                  for c in _channels(rng, n, mask, "set"))
+    m = torch.from_numpy(mask)
+    before = compact_channels.launches
+    got, cnt = compact_channels(m.float() if as_float else m, chans, 512)
+    want, wcnt = compact.pack_channels_rows(m, chans, 512)
+    assert compact_channels.launches == before
+    assert int(cnt) == int(wcnt) == int(mask.sum()) > 512 + CHUNK
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    lanes = np.flatnonzero(mask)[:512 + CHUNK]
+    np.testing.assert_array_equal(
+        got[0].numpy().view(np.int32),
+        chans[0].numpy()[lanes].view(np.int32))
+    assert torch.isnan(got[0]).any()

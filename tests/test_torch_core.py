@@ -143,6 +143,9 @@ def test_config_copy_matches_jax(profile):
 def test_port_imports_without_jax():
     code = ("import sys, ohm_tsd_slam_tpu_torch, ohm_tsd_slam_tpu_torch.slam, "
             "ohm_tsd_slam_tpu_torch.ops, ohm_tsd_slam_tpu_torch.grid, "
+            "ohm_tsd_slam_tpu_torch.registration.ransac, "
+            "ohm_tsd_slam_tpu_torch.ops.compact_channels_cuda, "
+            "ohm_tsd_slam_tpu_torch.ops.kernel_check, "
             "ohm_tsd_slam_tpu_torch.utils.testing; "
             "print('jax' in sys.modules, 'ohm_tsd_slam_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -211,6 +211,89 @@ def test_extract_segments_matches_jax(scene):
 
 # ----------------------------------------------------------------- candidates
 
+@functools.lru_cache(maxsize=None)
+def _small_scene(map_size, dtype_name):
+    """The room of _scene on a coarser grid of 2**map_size cells a side
+    (10.24 m either way), in both packages."""
+    dt = getattr(torch, dtype_name)
+    geom = tpolar.SensorPolar2D(**GEOM)
+    g = create(GridConfig(map_size=map_size,
+                          cellsize=10.24 / 2 ** map_size), dtype=dt)
+    for xyt in PUSH_POSES:
+        d, m = tpolar.standard_mask(geom, torch.as_tensor(_scan(xyt),
+                                                          dtype=dt))
+        g = push(g, geom, se2.make(*xyt, dtype=dt), d, m)
+    d = {f: getattr(g, f).numpy() for f in FIELDS}
+    d.update(cell_size=g.cell_size, max_truncation=g.max_truncation,
+             max_weight=g.max_weight, tile_dim=g.tile_dim)
+    return _jgrid_from(d), g
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+def test_general_extraction_matches_jax(dtype_name):
+    """A map_size 6 grid (64 cells a row) is narrower than the fused
+    kernels' 128-lane rows: extract_segments takes the dense layers and
+    the channel compaction (kernel E's twin here), and gives the segments
+    of the JAX package's _isocontour_segments; the caster on them renders
+    as JAX's."""
+    jg, tg = _small_scene(6, dtype_name)
+    assert not rf.fused_extraction(tg)
+    jp0, jp1, jvalid, jdropped = jrf._isocontour_segments(jg)
+    seg = rf.extract_segments(tg)
+    valid = seg.valid.numpy()
+    np.testing.assert_array_equal(valid, np.asarray(jvalid))
+    assert int(seg.n_dropped) == int(jdropped) == 0
+    assert int(seg.count) == int(valid.sum()) > 50
+    tol = 1e-9 if dtype_name == "float64" else 4 * float(
+        torch.finfo(torch.float32).eps) * 10.24
+    for got, want in ((seg.p0, jp0), (seg.p1, jp1)):
+        np.testing.assert_allclose(got.numpy()[valid],
+                                   np.asarray(want)[valid], rtol=0, atol=tol)
+    assert not seg.p0.numpy()[~valid].any()
+    if dtype_name == "float64":
+        geom = tpolar.SensorPolar2D(**GEOM)
+        jgeom = jpolar.SensorPolar2D(**GEOM)
+        for xyt in QUERY_POSES[:1]:
+            res = rf.raycast_fast(tg, geom, se2.make(*xyt, dtype=tg.tsd.dtype),
+                                  segments=seg)
+            jres = jrf.raycast_fast(jg, jgeom,
+                                    jse2.make(*xyt, dtype=jnp.float64))
+            m = np.asarray(jres.mask)
+            np.testing.assert_array_equal(res.mask.numpy(), m)
+            assert m.sum() > 100 and int(res.n_dropped) == 0
+            np.testing.assert_allclose(res.coords.numpy()[m],
+                                       np.asarray(jres.coords)[m],
+                                       rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+def test_general_route_equals_fused_route(dtype_name, monkeypatch):
+    """Two routes to one answer: on a map_size 7 grid, which the fused
+    kernels take, the dense layers + channel compaction give the fused
+    route's pack and count bit for bit, overflow included, and
+    extract_segments takes the general route exactly when
+    fused_extraction says no."""
+    _, tg = _small_scene(7, dtype_name)
+    assert rf.fused_extraction(tg)
+    ks = rf.cuda_kernels()
+    for size in (4096, 128):
+        fused, n_f = rf._pack_fused(tg, size, ks)
+        general, n_g = rf._pack_general(tg, size, ks)
+        assert int(n_f) == int(n_g) > 128 + 128
+        assert fused.dtype == general.dtype == tg.tsd.dtype
+        assert torch.equal(fused, general)
+    want = rf.extract_segments(tg)
+    monkeypatch.setattr(rf, "fused_extraction", lambda grid: False)
+    calls = []
+    got = rf.extract_segments(tg, kernels=ks._replace(
+        segment_layers=None, pack_rows=None,
+        compact_channels=lambda *a: calls.append(1)
+        or ks.compact_channels(*a)))
+    assert calls == [1]
+    for a, b in zip(got[:7], want[:7]):
+        assert torch.equal(a, b)
+
+
 def test_segment_candidates_match_jax(scene):
     """Kernel C's twin, one level, against the JAX package's per-round
     search (_segment_candidates) over its own extraction."""

@@ -1,6 +1,7 @@
 """The fast caster's CUDA kernels (ohm_tsd_slam_tpu_torch/csrc/
-segment_layers.cu, pack_rows.cu, segment_min.cu, window_replay.cu) against
-their plain twins, through ops/kernel_check.py.
+segment_layers.cu, pack_rows.cu, segment_min.cu, window_replay.cu,
+compact_channels.cu) against their plain twins, through
+ops/kernel_check.py.
 
 On the CPU the wrappers run the twins, so the check compares a twin with
 itself and exercises only its own code; importing the wrappers needs no
@@ -46,7 +47,8 @@ GEOM = polar2d.SensorPolar2D(size=541, angular_res=math.radians(0.5),
                              min_range=0.01, low_reflectivity_range=1.0)
 POSES = [(5.0, 5.0, 0.4), (5.3, 5.1, 0.5), (4.8, 5.2, 0.3)]
 MODULES = ("segment_layers_cuda", "pack_rows_cuda", "segment_min_cuda",
-           "window_replay_cuda")
+           "window_replay_cuda", "compact_channels_cuda")
+CFG_NARROW = GridConfig(map_size=6, cellsize=0.16)  # 64^2: general route
 
 
 @pytest.fixture
@@ -56,8 +58,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _room(device):
-    g = create(CFG, dtype=torch.float32, device=device)
+def _room(device, cfg=CFG):
+    g = create(cfg, dtype=torch.float32, device=device)
     for xyt in POSES:
         pose = se2.make(*xyt, dtype=torch.float64).numpy()
         r = simulate_scan(pose, GEOM.size, GEOM.angular_res, GEOM.phi_min,
@@ -96,12 +98,18 @@ def _assert_agrees_with_exact(res, exact):
     assert not gap.numel() or gap.max() < 1e-4
 
 
-def test_cpu_check_runs_the_twins():
-    """On the CPU every member of the check is a twin against itself."""
-    grid = _room("cpu")
+@pytest.mark.parametrize("cfg,extraction", [
+    (CFG, ("segment_layers", "pack_rows")),
+    (CFG_NARROW, ("compact_channels",))], ids=["fused", "general"])
+def test_cpu_check_runs_the_twins(cfg, extraction):
+    """On the CPU every member of the check is a twin against itself; the
+    grid's width chooses the extraction's kernels (A and B, or E)."""
+    grid = _room("cpu", cfg)
     check, _, res, exact = _check(grid, POSES[0])
+    ran = {name for name, st in check.stats.items() if st["calls"]}
+    assert ran == {"segment_min", "window_replay", *extraction}
     for name, st in check.stats.items():
-        assert st["calls"] >= 1 and st["max_abs_err"] == 0.0, (name, st)
+        assert st["max_abs_err"] == 0.0, (name, st)
     assert check.stats["segment_min"]["calls"] == 2          # K=1, K=3
     assert check.stats["window_replay"]["calls"] == rf.ROUNDS
     assert int(res.n_dropped) == 0 and res.mask.sum() > 300
@@ -124,10 +132,69 @@ def test_kernels_match_twins_on_a_room(cuda_device):
     for xyt in POSES + [(50.0, 50.0, 0.0)]:
         check, _, res, exact = _check(grid, xyt)
         torch.cuda.synchronize()
-        assert all(st["calls"] >= 1 for st in check.stats.values())
+        ran = {name for name, st in check.stats.items() if st["calls"]}
+        assert ran == set(check.stats) - {"compact_channels"}  # 256 wide
         assert int(res.n_dropped) == 0
         _assert_agrees_with_exact(res, exact)
     assert not res.mask.any()                    # the sensor outside
+
+
+@pytest.mark.cuda
+def test_general_extraction_on_a_narrow_grid(cuda_device):
+    """A float32 grid 64 cells wide on the card: kernel E behind the dense
+    layers, equal to its twin, launched once, A and B not at all."""
+    from ohm_tsd_slam_tpu_torch.ops.compact_channels_cuda import (
+        compact_channels,
+    )
+    from ohm_tsd_slam_tpu_torch.ops.segment_layers_cuda import segment_layers
+
+    grid = _room(cuda_device, CFG_NARROW)
+    before = compact_channels.launches, segment_layers.launches
+    check, seg, res, exact = _check(grid, POSES[0])
+    torch.cuda.synchronize()
+    assert compact_channels.launches == before[0] + 1
+    assert segment_layers.launches == before[1]
+    assert check.stats["compact_channels"] == {"calls": 1,
+                                               "max_abs_err": 0.0}
+    assert int(seg.count) > 50 and int(res.n_dropped) == 0
+    _assert_agrees_with_exact(res, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sparse", "overflow", "empty", "full",
+                                  "special", "float_mask"])
+def test_compact_channels_kernel_matches_twin(cuda_device, case):
+    """Kernel E against grid/compact.py::pack_channels_rows in every bit:
+    order, zeros after the last set lane, the count of all set lanes past
+    the capacity, NaN and Inf at set and unset lanes, a float 0/1 mask,
+    n = 16384."""
+    from ohm_tsd_slam_tpu_torch.grid.compact import pack_channels_rows
+    from ohm_tsd_slam_tpu_torch.ops.compact_channels_cuda import (
+        compact_channels,
+    )
+
+    rng = np.random.default_rng(4)
+    n, size = 16384, 256
+    density = {"sparse": 0.01, "overflow": 0.3, "empty": 0.0, "full": 1.0,
+               "special": 0.02, "float_mask": 0.01}[case]
+    mask = rng.random(n) < density
+    chans = [rng.normal(size=n).astype(np.float32) for _ in range(4)]
+    if case == "special":
+        for c, v in zip(chans, (np.nan, np.inf, -np.inf, np.nan)):
+            c[rng.choice(n, 400, replace=False)] = v
+    m = torch.from_numpy(mask).to(cuda_device)
+    if case == "float_mask":
+        m = m.float()
+    cs = tuple(torch.from_numpy(c).to(cuda_device) for c in chans)
+    got, cnt = compact_channels(m, cs, size)
+    want, wcnt = pack_channels_rows(m, cs, size)
+    torch.cuda.synchronize()
+    assert int(cnt) == int(wcnt) == int(mask.sum())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(TypeError, match="float32"):
+        compact_channels(m, tuple(c.double() for c in cs), size)
+    with pytest.raises(ValueError, match="multiples"):
+        compact_channels(m[:100], tuple(c[:100] for c in cs), size)
 
 
 @pytest.mark.cuda
@@ -166,7 +233,8 @@ def test_flag_change_names_a_new_library(monkeypatch):
     kernel is built anew, never loaded from a library built without."""
     from ohm_tsd_slam_tpu_torch.ops import _build
 
-    before = {n: _build.lib_path(n) for n in ("push", *_build.KERNEL_FLAGS)}
+    before = {n: _build.lib_path(n)
+              for n in ("push", "compact_channels", *_build.KERNEL_FLAGS)}
     assert len(set(before.values())) == len(before)
     monkeypatch.setitem(_build.KERNEL_FLAGS, "segment_min",
                         ["-fmad=true"])
