@@ -7,19 +7,29 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 
 1. device: requires torch.cuda; prints the card's name and power limit;
 2. build: deletes and recompiles every CUDA kernel of the main paths from
-   csrc/ (six libraries, one nvcc process each, all started together);
+   csrc/ (six libraries, one nvcc process each, all started together), and
+   prints ptxas's registers and stack frame of the push and window replay
+   kernels;
 3. kernel check: the push kernel against the plain push, both float32 on
    the card, at 1024^2 / 0.025 m / 1081 beams (three poses into one grid,
-   a sensor outside the grid, an all-masked scan); the fast caster's
-   kernels (segment layers, row pack, segment min, window replay) against
-   their plain twins at every call of the caster (ops/kernel_check.py), on
-   four synthetic fields: a thin sliver that forces the candidate rounds,
-   a noise field whose segments overflow the capacity (the node falls
-   back to the exact march), an empty grid, a sensor outside the grid; the
-   channel compaction (kernel E) against its twin, bit for bit, on the
-   noise field's layer stack (overflow), an empty and a full mask,
-   channels with NaN and Inf, a float mask, n = 16384;
-4. main paths, each with the launch counts set to 0 before and read after:
+   a sensor outside the grid, an all-masked scan), its per-tile cull
+   (touch, empty_inc, part_weight, tile_init, tile_initw) against
+   grid/push.py::tile_cull on every tile (ops/kernel_check.py::PushCheck,
+   which also checks every push of every main path); the fast caster's
+   kernels (segment layers, row pack, segment min, window replay, window
+   rounds) against their plain twins at every call of the caster
+   (ops/kernel_check.py), on four synthetic fields: a thin sliver that
+   forces the candidate rounds, a noise field whose segments overflow the
+   capacity (the node falls back to the exact march), an empty grid, a
+   sensor outside the grid; the rounds kernel also with a capacity of 4 on
+   the sliver (more needing beams than replays: the drop counts must be
+   equal) and with no needing beam; the channel compaction (kernel E)
+   against its twin, bit for bit, on the noise field's layer stack
+   (overflow), an empty and a full mask, channels with NaN and Inf, a
+   float mask, n = 16384;
+4. main paths, each with the launch counts set to 0 before and read after
+   (one push launch a push, A and B or E once per grid version, C twice
+   and D's two entry points once each per scan):
    a. ICP mode: SlamNode with configs/double-laser.yaml's settings (two
       robots sharing the grid, 25 ICP iterations, the fast caster), ~30
       simulated scans per robot through process_scan, then publish_map;
@@ -44,8 +54,9 @@ time beside its bound on this card (the larger of the bytes the function
 must move over the HBM rate and its operations over the float32 rate, both
 counted by `kernel_bounds` from this run's inputs) and, where one PyTorch
 call computes the same function, that call's time.  A row's `ms` is its
-wrapper's time; the push kernel and kernel E also carry `kernel_ms` (the
-launch alone on held buffers) and `device_ms` (that launch replayed from a
+wrapper's time; the push kernel, kernel D's two entry points and kernel E
+also carry `kernel_ms` (the launch alone on held buffers; for D the
+wrapper, which holds nothing) and `device_ms` (that launch replayed from a
 CUDA graph: the device's share without the host's).  The last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
 Imports nothing of JAX.
@@ -89,11 +100,16 @@ CASTER = [
     ("segment_min", "segment_min_f32",
      "ohm_tsd_slam_tpu/ops/raycast_pallas.py:202"),
     ("window_replay", "window_replay_f32",
-     "ohm_tsd_slam_tpu/ops/window_block_pallas.py:425, :764"),
+     "ohm_tsd_slam_tpu/ops/window_block_pallas.py:425"),
     ("compact_channels", "compact_channels_f32",
      "ohm_tsd_slam_tpu/ops/compact_pallas.py:200"),
+    ("window_rounds", "window_rounds_f32",
+     "ohm_tsd_slam_tpu/ops/window_block_pallas.py:764"),
 ]
-# the plain version each wrapper module runs for a CPU tensor
+# the source (csrc/<source>.cu, wrapped by ops/<source>_cuda.py) of a
+# wrapper that is not named after its source
+SOURCE = {"window_rounds": "window_replay"}
+# the plain version each wrapper runs for a CPU tensor
 PLAIN = {name: f"{name}_plain" for name, _, _ in CASTER}
 PLAIN["compact_channels"] = "pack_channels_rows"
 
@@ -215,11 +231,16 @@ def time_cuda(fn, n=N_TIMED, warmup=3) -> list:
     return times
 
 
-def time_device(fn, n=N_TIMED) -> list:
-    """ms of fn()'s device work alone: its launches are captured into a
-    CUDA graph and each replay is timed between CUDA events, so the host's
-    work per launch (Python, ctypes, the CUDA runtime's queueing) is left out.
-    fn must launch on the current stream and allocate nothing."""
+GRAPH_REPS = 20              # calls captured into one graph by time_device
+
+
+def time_device(fn, n=N_TIMED, reps=GRAPH_REPS) -> list:
+    """ms of fn()'s device work alone: `reps` calls in a row are captured
+    into a CUDA graph, each replay is timed between CUDA events and divided
+    by `reps`, so the host's work per launch (Python, ctypes, the CUDA
+    runtime's queueing) is left out and the replay's own launch (some 10 us)
+    is spread over the calls.  fn must launch on the current stream; the
+    calls run back to back, each on the caches the one before left."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -227,8 +248,9 @@ def time_device(fn, n=N_TIMED) -> list:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return time_cuda(graph.replay, n)
+        for _ in range(reps):
+            fn()
+    return [ms / reps for ms in time_cuda(graph.replay, n)]
 
 
 def compact_launch(mask, chans, size):
@@ -275,7 +297,7 @@ def caster_wrappers() -> dict:
     import importlib
 
     return {name: getattr(importlib.import_module(
-        f"ohm_tsd_slam_tpu_torch.ops.{name}_cuda"), name)
+        f"ohm_tsd_slam_tpu_torch.ops.{SOURCE.get(name, name)}_cuda"), name)
         for name, _, _ in CASTER}
 
 
@@ -293,19 +315,28 @@ def merge_stats(total: dict, check) -> None:
         t["max_abs_err"] = max(t["max_abs_err"], st["max_abs_err"])
 
 
-def checked_render(grid, geom, xyt, total: dict, max_segments=None):
+def checked_render(grid, geom, xyt, total: dict, max_segments=None,
+                   rounds_args: list = None):
     """Extraction and one render on the kernel path, every kernel call
-    held against its twin; returns (cache, result, exact-march result)."""
+    held against its twin; returns (check, cache, result, exact-march
+    result).  `rounds_args` takes a copy of what the render gave the
+    rounds kernel."""
     from ohm_tsd_slam_tpu_torch.core import se2
     from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
     from ohm_tsd_slam_tpu_torch.grid.raycast import raycast
     from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck
 
     check = KernelCheck()
-    seg = rf.extract_segments(grid, max_segments, kernels=check.kernels)
+    kernels = check.kernels
+    if rounds_args is not None:
+        def grab(grid_, S, *rest):
+            rounds_args[:] = [grid_, S.clone(), *rest]
+            return check.kernels.window_rounds(grid_, S, *rest)
+
+        kernels = kernels._replace(window_rounds=grab)
+    seg = rf.extract_segments(grid, max_segments, kernels=kernels)
     pose = se2.make(*xyt, device=grid.tsd.device)
-    res = rf.raycast_fast(grid, geom, pose, segments=seg,
-                          kernels=check.kernels)
+    res = rf.raycast_fast(grid, geom, pose, segments=seg, kernels=kernels)
     exact = raycast(grid, geom, pose)
     torch.cuda.synchronize()
     merge_stats(total, check)
@@ -346,21 +377,46 @@ def caster_check(dev, total: dict) -> dict:
     # in the later candidate rounds (fewer than UNRESOLVED_CAP of them)
     sliver = grid_of(sliver_field(CELLS, 600, 700, rows=(472, 552)))
     xyt = (10.0, 12.8, 0.05)
-    check, seg, res, exact = checked_render(sliver, geom, xyt, total)
+    rounds_args: list = []
+    check, seg, res, exact = checked_render(sliver, geom, xyt, total,
+                                            rounds_args=rounds_args)
     x_hit = (res.coords[:, 0] * math.cos(xyt[2])
              - res.coords[:, 1] * math.sin(xyt[2]) + xyt[0])
-    # C at K=1 then K=ROUNDS-1; D on all beams, then on the round slots
+    # C at K=1 then K=ROUNDS-1; D on all beams, then its rounds in one call
     mins = [f["finite"] for n, _, f in check.log if n == "segment_min"]
     replays = [f["hits"] for n, _, f in check.log if n == "window_replay"]
+    rounds = [f for n, _, f in check.log if n == "window_rounds"]
     out["sliver"] = dict(agreement(res, exact),
                          wall_hits=int((res.mask & (x_hit > 17.0)).sum()),
-                         segment_min_finite=mins, window_replay_hits=replays)
+                         segment_min_finite=mins, window_replay_hits=replays,
+                         window_rounds=rounds)
     assert len(mins) == 2 and len(mins[1]) == rf.ROUNDS - 1, out["sliver"]
-    assert mins[1][0] > 0 and len(replays) == rf.ROUNDS, out["sliver"]
-    assert sum(replays[1:]) > 10, out["sliver"]      # hits in the rounds
+    assert mins[1][0] > 0 and len(replays) == len(rounds) == 1, out["sliver"]
+    assert rounds[0]["new_hits"] > 10, out["sliver"]   # hits in the rounds
+    assert rounds[0]["dropped"] == 0, out["sliver"]
     assert out["sliver"]["wall_hits"] > 10, out["sliver"]
     assert int(res.n_dropped) == 0, out["sliver"]
     assert torch.equal(res.mask, exact.mask), out["sliver"]
+
+    # the rounds kernel at the same inputs with 4 replays a round (more
+    # beams need one: the drop count must equal the twin's) and with no
+    # candidate at all (nothing replayed, every beam resolved)
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck
+
+    check = KernelCheck()
+    g_, S, lev, *beams, cap = rounds_args
+    check.kernels.window_rounds(g_, S.clone(), lev, *beams, 4)
+    S_none, dropped = check.kernels.window_rounds(
+        g_, S.clone(), torch.full_like(lev, math.inf), *beams, cap)
+    torch.cuda.synchronize()
+    forced, none = [f for _, _, f in check.log]
+    out["rounds_forced_overflow"] = dict(forced, cap=4)
+    out["rounds_none_needed"] = dict(none, cap=cap)
+    assert forced["dropped"] > 0 and forced["finite"][0] > 4, forced
+    assert none["dropped"] == int(dropped) == 0 and none["new_hits"] == 0
+    assert bool((S_none[:, 1] > 0).all()), none
+    assert check.stats["window_rounds"] == {"calls": 2, "max_abs_err": 0.0}
+    merge_stats(total, check)
 
     # noise: far more segments than MAX_SEGMENTS; B counts the drops
     noise = grid_of(noise_field(CELLS, seed=3))
@@ -396,12 +452,14 @@ def caster_check(dev, total: dict) -> dict:
     return out
 
 
-def kernel_check(dev) -> dict:
+def kernel_check(dev, push_check) -> dict:
+    """The push kernel against the plain push; `push_check`
+    (ops/kernel_check.py::PushCheck) launches it and holds its cull
+    against tile_cull on every tile."""
     from ohm_tsd_slam_tpu_torch.config import GridConfig
     from ohm_tsd_slam_tpu_torch.core import se2
     from ohm_tsd_slam_tpu_torch.grid.push import push
     from ohm_tsd_slam_tpu_torch.grid.state import create
-    from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
     from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
         SensorPolar2D,
         standard_mask,
@@ -420,17 +478,19 @@ def kernel_check(dev) -> dict:
             device=dev))
         pose = se2.make(*xyt, device=dev)
         g_ref = push(g_ref, geom, pose, data, mask)
-        g_ker = push_cuda(g_ker, geom, pose, data, mask)
+        g_ker = push_check(g_ker, geom, pose, data, mask)
         torch.cuda.synchronize()
     results["three_poses"] = compare_push(g_ref, g_ker)
     assert results["three_poses"]["finite_cells"] > 100_000
+    # the error of the kernel before it took the cull (1.28e-5) is the limit
+    assert results["three_poses"]["max_abs_err"] <= 1.3e-5, results
 
     inf = torch.full((BEAMS,), math.inf, device=dev)
     none = torch.zeros(BEAMS, dtype=torch.bool, device=dev)
     for name, xyt in [("sensor_outside", (60.0, 60.0, 0.0)),
                       ("all_masked", (12.8, 12.8, 0.0))]:
         pose = se2.make(*xyt, device=dev)
-        g_k = push_cuda(grid0, geom, pose, inf, none)
+        g_k = push_check(grid0, geom, pose, inf, none)
         torch.cuda.synchronize()
         results[name] = compare_push(push(grid0, geom, pose, inf, none), g_k)
         if name == "sensor_outside":
@@ -447,8 +507,8 @@ def watch_plain(on_cuda: list) -> list:
     targets = [(importlib.import_module(
         "ohm_tsd_slam_tpu_torch.ops.push_cuda"), "push")]
     targets += [(importlib.import_module(
-        f"ohm_tsd_slam_tpu_torch.ops.{name}_cuda"), PLAIN[name])
-        for name, _, _ in CASTER]
+        f"ohm_tsd_slam_tpu_torch.ops.{SOURCE.get(name, name)}_cuda"),
+        PLAIN[name]) for name, _, _ in CASTER]
     saved = []
     for mod, attr in targets:
         orig = getattr(mod, attr)
@@ -524,9 +584,10 @@ def scan_msg(ranges, max_range, stamp):
                      range_max=max_range, stamp=stamp)
 
 
-def main_path(dev, label: str):
+def main_path(dev, label: str, push_check):
     """The ICP-mode path: both robots through SlamNode.process_scan, then
-    publish_map."""
+    publish_map.  The mapper pushes through `push_check`, which calls
+    push_cuda and holds the kernel's cull against tile_cull."""
     from ohm_tsd_slam_tpu_torch.config import from_flat_params
     from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
     from ohm_tsd_slam_tpu_torch.slam import SlamNode
@@ -539,14 +600,9 @@ def main_path(dev, label: str):
     # wrappers are the only way there
     plain_on_cuda = []
     saved = watch_plain(plain_on_cuda)
-    n_pushes = []
     kernel_push = node.mapper._push_fn
-
-    def counted(*args):
-        n_pushes.append(1)
-        return kernel_push(*args)
-
-    node.mapper._push_fn = counted
+    node.mapper._push_fn = push_check
+    pushes_before = push_check.stats["calls"]
 
     half = cfg.grid.size_meters * 0.5
     starts = [(half + rc.local_offset_x, half + rc.local_offset_y,
@@ -563,6 +619,7 @@ def main_path(dev, label: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    n_pushes = push_check.stats["calls"] - pushes_before
     for mod, attr, orig in saved:
         setattr(mod, attr, orig)
 
@@ -572,7 +629,7 @@ def main_path(dev, label: str):
               f"{max(errs[r]):.6f} m, final {errs[r][-1]:.6f} m "
               f"(limit {limit} m)")
         assert max(errs[r]) < limit, (r, max(errs[r]))
-    print(f"main path (ICP mode): {len(n_pushes)} pushes, {updates} grid "
+    print(f"main path (ICP mode): {n_pushes} pushes, {updates} grid "
           f"versions, "
           f"{n_scans} localized scans (fast caster, rays_dropped 0 on "
           f"each); kernel launches {json.dumps(launches)}; plain versions "
@@ -580,14 +637,14 @@ def main_path(dev, label: str):
           f"publish_map in {wall:.3f} s (first-call overheads included) "
           f"[{label}]")
     assert all(loc.params.fast_raycast for loc in node.localizers)
-    assert launches["push"] >= len(n_pushes) > 2, launches
-    # A and B once per grid version, C twice and D ROUNDS times per scan
-    # (rays_dropped 0 on every scan: no scan fell back to the exact march)
-    from ohm_tsd_slam_tpu_torch.grid.raycast_fast import ROUNDS
-
+    # one launch a push; A and B once per grid version; C twice and D's
+    # two entry points once each per scan (rays_dropped 0 on every scan: no
+    # scan fell back to the exact march)
+    assert launches["push"] == n_pushes > 2, launches
     assert launches["segment_layers"] == launches["pack_rows"] >= updates
     assert launches["segment_min"] == 2 * n_scans, launches
-    assert launches["window_replay"] == ROUNDS * n_scans, launches
+    assert launches["window_replay"] == n_scans, launches
+    assert launches["window_rounds"] == n_scans, launches
     assert launches["compact_channels"] == 0, launches   # a 1024-wide grid
     assert not plain_on_cuda, plain_on_cuda
     for f in ("tsd", "weight", "tile_init", "tile_initw"):
@@ -695,7 +752,7 @@ def main_grid_compact_check(node, total: dict) -> dict:
     return out
 
 
-def narrow_path(dev, label: str, total: dict):
+def narrow_path(dev, label: str, total: dict, push_check):
     """The general-extraction path: SlamNode at map_size 6 on the card,
     whose 64-cell rows kernels A and B do not take, ICP mode."""
     from ohm_tsd_slam_tpu_torch.config import from_flat_params
@@ -705,6 +762,9 @@ def narrow_path(dev, label: str, total: dict):
     cfg = from_flat_params(NARROW)
     node = SlamNode(cfg, dtype=torch.float32, device=dev)
     assert not rf.fused_extraction(node.grid)
+    kernel_push = node.mapper._push_fn
+    node.mapper._push_fn = push_check
+    pushes_before = push_check.stats["calls"]
     half = cfg.grid.size_meters * 0.5
     gts = [trajectory((half, half, 0.0), SCANS_NARROW)]
     scans = [[scan_ranges(p, 30.0, scene=narrow_world) for p in gts[0]]]
@@ -715,6 +775,8 @@ def narrow_path(dev, label: str, total: dict):
     run = drive(node, cfg, gts, scans)
     torch.cuda.synchronize()
     launches = read_counts()
+    n_pushes = push_check.stats["calls"] - pushes_before
+    node.mapper._push_fn = kernel_push
     for mod, attr, orig in saved:
         setattr(mod, attr, orig)
 
@@ -731,8 +793,9 @@ def narrow_path(dev, label: str, total: dict):
     assert launches["compact_channels"] == run["updates"] > 2, launches
     assert launches["segment_layers"] == launches["pack_rows"] == 0
     assert launches["segment_min"] == 2 * run["n_scans"], launches
-    assert launches["window_replay"] == rf.ROUNDS * run["n_scans"], launches
-    assert launches["push"] >= run["updates"], launches
+    assert launches["window_replay"] == run["n_scans"], launches
+    assert launches["window_rounds"] == run["n_scans"], launches
+    assert launches["push"] == n_pushes >= run["updates"], launches
     assert not plain_on_cuda, plain_on_cuda
 
     # the render on that grid: the kernels against their twins, the result
@@ -752,13 +815,12 @@ def narrow_path(dev, label: str, total: dict):
     return node, launches
 
 
-def ransac_paths(dev, label: str):
+def ransac_paths(dev, label: str, push_check):
     """The RANSAC pre-registration paths at full width: TSD mode with
     configs/single-laser.yaml's settings (1024^2 cells, 1081 beams, 100
     trials, the yaml's control set), twice from one seed; then EXP and PDF
     from the same start."""
     from ohm_tsd_slam_tpu_torch.config import RegMode, from_flat_params
-    from ohm_tsd_slam_tpu_torch.grid.raycast_fast import ROUNDS
     from ohm_tsd_slam_tpu_torch.slam import SlamNode
 
     cfg = from_flat_params(SINGLE_LASER)
@@ -771,6 +833,9 @@ def ransac_paths(dev, label: str):
         flat = {**SINGLE_LASER, "registration_mode": int(mode)}
         c = from_flat_params(flat)
         node = SlamNode(c, dtype=torch.float32, device=dev, seed=seed)
+        kernel_push = node.mapper._push_fn
+        node.mapper._push_fn = push_check
+        pushes_before = push_check.stats["calls"]
         plain_on_cuda = []
         saved = watch_plain(plain_on_cuda)
         reset_counts()
@@ -779,6 +844,8 @@ def ransac_paths(dev, label: str):
         torch.cuda.synchronize()
         run["wall"] = time.perf_counter() - t0
         run["launches"] = read_counts()
+        n_pushes = push_check.stats["calls"] - pushes_before
+        node.mapper._push_fn = kernel_push    # the node as its users run it
         for mod, attr, orig in saved:
             setattr(mod, attr, orig)
         loc = node.localizers[0]
@@ -799,8 +866,8 @@ def ransac_paths(dev, label: str):
         la = run["launches"]
         assert la["segment_layers"] == la["pack_rows"] >= run["updates"], la
         assert la["segment_min"] == 2 * run["n_scans"], la
-        assert la["window_replay"] == ROUNDS * run["n_scans"], la
-        assert la["push"] >= run["updates"] > 2, la
+        assert la["window_replay"] == la["window_rounds"] == run["n_scans"]
+        assert la["push"] == n_pushes >= run["updates"] > 2, la
         return node, run
 
     node, run = run_mode(RegMode.TSD, SCANS_TSD)
@@ -835,21 +902,69 @@ def peak_mib(fn) -> tuple:
     return (torch.cuda.max_memory_allocated() - held) / 2**20, held / 2**20
 
 
+def device_kernels(fn):
+    """(device kernels and copies launched, their summed device time in
+    ms) of one fn(), from torch.profiler after a warm-up call; None where
+    the profiler shows no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    if not on_device:
+        return None
+    return len(on_device), sum(e.device_time for e in on_device) * 1e-3
+
+
+def device_kernel_counts(node, label: str) -> None:
+    """Device kernels each stage of the main path launches (the render and
+    the step are bound by their count, not by the device's work).  Run
+    after every time is taken: once the profiler has run, its tracing hooks
+    stay in the process and slow every later launch."""
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
+    from ohm_tsd_slam_tpu_torch.slam.localize import localize_step
+
+    loc = node.localizers[0]
+    grid, geom, pose = node.grid, loc.geom, loc.pose.contiguous()
+    xyt = (float(pose[0, 2]), float(pose[1, 2]),
+           math.atan2(float(pose[1, 0]), float(pose[0, 0])))
+    data, mask = node._preprocess(loc, scan_ranges(xyt, geom.max_range))
+    seg = node._segments_for(grid)
+    for name, fn in (
+            ("push_cuda", lambda: push_cuda(grid, geom, pose, data, mask)),
+            ("extract_segments", lambda: rf.extract_segments(grid)),
+            ("raycast_fast", lambda: rf.raycast_fast(grid, geom, pose,
+                                                     segments=seg)),
+            ("localize_step", lambda: localize_step(
+                grid, pose, loc.last_pose, data, mask, loc.params,
+                segments=seg))):
+        found = device_kernels(fn)
+        print(f"device kernels {name}: " + (
+            "not measured (the profiler shows no device activity)"
+            if found is None else
+            f"{found[0]} launched, {found[1]:.4f} ms of device time")
+            + f" [{label}]")
+
+
 def stage_times(node, label: str) -> dict:
     """Median times of the main path's stages on the card."""
     import dataclasses
 
     from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
-    from ohm_tsd_slam_tpu_torch.grid.compact import (
-        compact_mask,
-        pack_channels_rows,
-    )
-    from ohm_tsd_slam_tpu_torch.grid.push import push
+    from ohm_tsd_slam_tpu_torch.grid.compact import pack_channels_rows
+    from ohm_tsd_slam_tpu_torch.grid.push import push, tile_cull
     from ohm_tsd_slam_tpu_torch.grid.raycast import raycast
     from ohm_tsd_slam_tpu_torch.ops.push_cuda import (
+        empty_like,
         launch,
         push_cuda,
-        tile_meta,
     )
     from ohm_tsd_slam_tpu_torch.registration.icp import icp
     from ohm_tsd_slam_tpu_torch.sensor.polar2d import data_to_cartesian
@@ -894,21 +1009,22 @@ def stage_times(node, label: str) -> dict:
         print(f"peak device memory {name}: {peak:.1f} MiB above the "
               f"{held:.1f} MiB held [{label}]")
     t = {}
-    t["push kernel (push_cuda: tile cull + copy + kernel)"] = time_cuda(
+    t["push kernel (push_cuda: four allocations + one launch)"] = time_cuda(
         lambda: push_cuda(grid, geom, pose, data, mask))
     t["push plain (grid/push.py::push on the card)"] = time_cuda(
         lambda: push(grid, geom, pose, data, mask))
 
-    # the kernel launch alone, on the same inputs
-    touch, empty_inc, meta, table = tile_meta(grid, geom, pose, data, mask)
-    tsd, w = grid.tsd.clone(), grid.weight.clone()
+    # the kernel launch alone into a held result, on the same inputs
+    held = empty_like(grid)
     t["push kernel launch alone (tsd_push_f32)"] = time_cuda(
-        lambda: launch(grid, geom, tsd, w, table, meta, pose))
+        lambda: launch(grid, geom, pose, data, mask, held))
     t["push kernel device time (tsd_push_f32 replayed from a CUDA graph)"] = \
-        time_device(lambda: launch(grid, geom, tsd, w, table, meta, pose))
+        time_device(lambda: launch(grid, geom, pose, data, mask, held))
+    touch, empty_inc, _ = tile_cull(grid, geom, pose, data, mask)
     active = int((touch | (empty_inc & grid.tile_init)).sum())
     print(f"push: {active} of {touch.numel()} tiles active in the timed push")
-    facts = {"push_active_tiles": active, "tile_dim": grid.tile_dim}
+    facts = {"push_active_tiles": active, "tile_dim": grid.tile_dim,
+             "tiles": touch.numel()}
 
     # the caster's kernels alone against their twins, at the main path's
     # inputs: the layers and pack of this grid, the round-1 candidate
@@ -948,7 +1064,8 @@ def stage_times(node, label: str) -> dict:
     twins = rf.CasterKernels(
         rf.segment_layers_plain,
         lambda g, m, rows, size: rf.pack_rows_plain(g, m, size),
-        rf.segment_min_plain, rf.window_replay_plain, pack_channels_rows)
+        rf.segment_min_plain, rf.window_replay_plain, pack_channels_rows,
+        rf.window_rounds_plain)
     t["extract_segments plain (twins of A + B, candidate pack)"] = time_cuda(
         lambda: rf.extract_segments(grid, kernels=twins))
     ray, tr, idx_min, idx_max, feasible = rf.beam_geometry(grid, geom, pose)
@@ -963,16 +1080,21 @@ def stage_times(node, label: str) -> dict:
     t_1 = ks["segment_min"](*cargs)[:, 0]
     has = torch.isfinite(t_1) & feasible
     k_1 = torch.where(has, t_1, 0.0)
-    tw0 = idx_min + (torch.floor(k_1 - idx_min) - rf.BACKOFF).clamp(min=0.0)
-    dargs = (grid, tw0, ray, idx_max, has, tr.contiguous())
+    dargs = (grid, k_1, ray, idx_min, idx_max, has, tr.contiguous())
     t["D window_replay kernel (round 1)"] = time_cuda(
         lambda: ks["window_replay"](*dargs))
     t["D window_replay plain (round 1)"] = time_cuda(
         lambda: rf.window_replay_plain(*dargs))
+    # the wrapper holds nothing but its result: its launch alone is the
+    # wrapper, and its device work the wrapper replayed from a CUDA graph
+    t["D window_replay device time (round 1, replayed from a CUDA graph)"] = \
+        time_device(lambda: ks["window_replay"](*dargs))
 
     # the rounds as the main path launches them: C at K=ROUNDS-1 for the
-    # beams round 1 left unresolved, D on the first round's compacted slots
-    resolved = (ks["window_replay"](*dargs)[:, 1] > 0.0) | ~has
+    # beams round 1 left unresolved, then D's rounds entry point once
+    S0 = ks["window_replay"](*dargs)
+    resolved = (S0[:, 1] > 0.0) | ~has
+    S0[:, 1] = resolved.to(S0.dtype)
     t_after = torch.where(resolved, math.inf,
                           torch.maximum(lo, k_1 + rf.COVER))
     c3args = (seg.pack, seg.count, ray, lo, hi, t_after, tr_pack,
@@ -981,21 +1103,28 @@ def stage_times(node, label: str) -> dict:
         lambda: ks["segment_min"](*c3args))
     t["C segment_min plain (K=3, rounds)"] = time_cuda(
         lambda: rf.segment_min_plain(*c3args))
-    t_2 = ks["segment_min"](*c3args)[:, 0]
-    need = torch.isfinite(t_2) & ~resolved
+    lev = ks["segment_min"](*c3args)
     cap = rf.unresolved_cap(ray.shape[0])
-    idx_u, uvalid = compact_mask(need, cap)
-    k_u = torch.where(uvalid, t_2[idx_u], 0.0)
-    tw_u = idx_min[idx_u] + (torch.floor(k_u - idx_min[idx_u])
-                             - rf.BACKOFF).clamp(min=0.0)
-    uargs = (grid, tw_u, ray[idx_u].contiguous(), idx_max[idx_u], uvalid,
-             tr.contiguous())
-    t[f"D window_replay kernel (round 2, {cap} slots)"] = time_cuda(
-        lambda: ks["window_replay"](*uargs))
-    t[f"D window_replay plain (round 2, {cap} slots)"] = time_cuda(
-        lambda: rf.window_replay_plain(*uargs))
-    print(f"rounds: {int(need.sum())} of {cap} round-2 slots active in the "
-          "timed round")
+    rargs = (lev, ray, idx_min, idx_max, tr.contiguous(), cap)
+    # the kernel resolves its state in place: every timed call gets a
+    # fresh copy of round 1's state, made before the clock starts
+    fresh = iter([S0.clone() for _ in range(N_TIMED + 3)])
+    t["D window_rounds kernel (rounds 2-4)"] = time_cuda(
+        lambda: ks["window_rounds"](grid, next(fresh), *rargs))
+    t["D window_rounds plain (rounds 2-4)"] = time_cuda(
+        lambda: rf.window_rounds_plain(grid, S0, *rargs))
+    # from a graph the state must be restored on the device: the copy of
+    # its 8 floats a beam is timed with the kernel, and alone beside it
+    S_work = S0.clone()
+    t["D window_rounds device time (rounds 2-4 after a copy of the state, "
+      "replayed from a CUDA graph)"] = time_device(
+        lambda: (S_work.copy_(S0), ks["window_rounds"](grid, S_work, *rargs)))
+    t["D window_rounds state copy alone (replayed from a CUDA graph)"] = \
+        time_device(lambda: S_work.copy_(S0))
+    needing = [int(n) for n in torch.isfinite(lev).sum(0)]
+    print(f"rounds: beams with a candidate in rounds 2-4 of the timed call: "
+          f"{needing} (capacity {cap})")
+    facts.update(rounds_needing=sum(needing), rounds=rf.ROUNDS - 1)
 
     t["raycast_fast (cached segments, kernels)"] = time_cuda(
         lambda: rf.raycast_fast(grid, geom, pose, segments=seg))
@@ -1199,11 +1328,14 @@ def kernel_bounds(facts: dict) -> dict:
     cap = 32768 + 128
     segs = facts["segments"]
     work = {
-        # active tiles: tsd and weight read and written, the ranges read;
-        # ~60 operations a cell (atan2, bin, running average)
-        "push": (facts["push_active_tiles"] * facts["tile_dim"] ** 2 * 16
-                 + beams * 8,
-                 facts["push_active_tiles"] * facts["tile_dim"] ** 2 * 60),
+        # out of place: tsd and weight of the whole grid read and written
+        # (an inactive tile is copied through), the ranges and their mask,
+        # the two tile arrays in and out; ~60 operations a cell of an
+        # active tile (atan2, bin, running average), ~150 a tile for the
+        # cull (four corner bins) and 4 a beam of the scan for its spans
+        "push": (cells * 16 + beams * 5 + facts["tiles"] * 10,
+                 facts["push_active_tiles"] * facts["tile_dim"] ** 2 * 60
+                 + facts["tiles"] * 150 + beams * 4),
         # the field read, the 4-layer mask and the row counts written
         "segment_layers": (cells * 4 + 4 * cells * 4 + rows * 4, cells * 40),
         # row counts read, the mask rows that hold a segment, 4 field taps
@@ -1214,9 +1346,16 @@ def kernel_bounds(facts: dict) -> dict:
         # out; ~20 operations a beam-segment pair
         "segment_min": (segs * 32 + beams * 28 + beams * 4,
                         beams * segs * 20),
-        # round 1: 8 samples + 4 normal taps of 4 cells a beam, 6 values
+        # round 1: 8 samples + 4 normal taps of 4 cells a beam, 7 values
         # in, 8 out; ~25 operations a tap
-        "window_replay": (beams * (12 * 16 + 24 + 32), beams * 12 * 25),
+        "window_replay": (beams * (12 * 16 + 28 + 32), beams * 12 * 25),
+        # the rounds: a beam's candidates and its resolved flag read, the
+        # flag written; a replay (taps, 5 values in, a row out) for each
+        # beam with a candidate in this run; ~6 operations a beam a round
+        "window_rounds": (beams * (facts["rounds"] * 4 + 8)
+                          + facts["rounds_needing"] * (12 * 16 + 20 + 32),
+                          beams * facts["rounds"] * 6
+                          + facts["rounds_needing"] * 12 * 25),
         # main-path shape: the bool mask read, 4 values a set lane, the
         # pack written; one compare a lane
         "compact_channels": (facts["narrow_lanes"]
@@ -1250,7 +1389,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # 2. build (from the sources in this checkout, never a cached library)
-    names = ["push"] + [name for name, _, _ in CASTER]
+    names = ["push"] + [name for name, _, _ in CASTER if name not in SOURCE]
     for name in names:
         if os.path.exists(_build.lib_path(name)):
             os.remove(_build.lib_path(name))
@@ -1260,11 +1399,28 @@ def main() -> int:
         _build.load(name)
     print(f"build {len(names)} sources in csrc/ with nvcc, in parallel: "
           f"{time.perf_counter() - t0:.2f} s")
+    for name in ("push", "window_replay"):
+        frames = []
+        for line in _build.resource_usage(name):
+            if ("Used" in line or "Function properties" in line
+                    or "stack frame" in line):
+                print(f"ptxas csrc/{name}.cu: {line}")
+            if "stack frame" in line:
+                frames.append(line)
+        # neither kernel indexes a local array at run time or spills
+        assert frames and all(f.startswith("0 bytes stack frame, 0 bytes "
+                                           "spill stores") for f in frames), \
+            (name, frames)
 
     # 3. kernel check
-    check = kernel_check(dev)
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import PushCheck
+
+    push_check = PushCheck()
+    check = kernel_check(dev, push_check)
     for name, stats in check.items():
         print(f"kernel check {name}: {json.dumps(stats)}")
+    print(f"kernel check push cull vs tile_cull: "
+          f"{json.dumps(push_check.stats)}")
     caster_stats: dict = {}
     for name, stats in caster_check(dev, caster_stats).items():
         print(f"kernel check caster {name}: {json.dumps(stats)}")
@@ -1272,7 +1428,7 @@ def main() -> int:
         print(f"kernel check compact_channels {name}: {json.dumps(stats)}")
 
     # 4a. the ICP-mode path, then the caster's kernels on the grid it built
-    node, launches = main_path(dev, label)
+    node, launches = main_path(dev, label, push_check)
     for name, stats in main_grid_check(node, caster_stats).items():
         print(f"kernel check caster main-path grid {name}: "
               f"{json.dumps(stats)}")
@@ -1280,9 +1436,18 @@ def main() -> int:
           f"{json.dumps(main_grid_compact_check(node, caster_stats))}")
 
     # 4b. the general-extraction path; 4c. TSD, then EXP and PDF
-    narrow, narrow_launches = narrow_path(dev, label, caster_stats)
-    tsd_node, tsd_launches = ransac_paths(dev, label)
+    narrow, narrow_launches = narrow_path(dev, label, caster_stats,
+                                          push_check)
+    tsd_node, tsd_launches = ransac_paths(dev, label, push_check)
     print(f"kernel check caster, every call: {json.dumps(caster_stats)}")
+    # every push of the kernel check and of the five paths: PushCheck
+    # raises on the first tile that disagrees, so the counts below are 0
+    print(f"kernel check push cull vs tile_cull, every push: "
+          f"{json.dumps(push_check.stats)}")
+    st = push_check.stats
+    assert st["touch_flips"] == st["empty_inc_flips"] == 0, st
+    assert st["part_weight_mismatches"] == st["tile_init_mismatches"] == 0
+    assert st["tile_initw_mismatches"] == 0 and st["touched"] > 1000, st
     for name, st in caster_stats.items():
         assert st["calls"] > 0, (name, st)
 
@@ -1292,6 +1457,7 @@ def main() -> int:
     times.update(more)
     facts.update(more_facts)
     bounds = kernel_bounds(facts)
+    device_kernel_counts(node, label)
 
     def entry(name, fn, replaces, key, launches_, err, bound, library=None,
               **extra):
@@ -1308,8 +1474,8 @@ def main() -> int:
     # plain function's.  Where the launch was also timed apart from the
     # wrapper's host work, `kernel_ms` is the launch alone on held buffers
     # and `device_ms` its device work replayed from a CUDA graph
-    times["push kernel"] = times["push kernel (push_cuda: tile cull + copy "
-                                 "+ kernel)"]
+    times["push kernel"] = times["push kernel (push_cuda: four allocations "
+                                 "+ one launch)"]
     times["push plain"] = times["push plain (grid/push.py::push on the card)"]
     kernels = [entry(
         "push", "tsd_push_f32", "ohm_tsd_slam_tpu/ops/push_pallas.py:272",
@@ -1319,11 +1485,19 @@ def main() -> int:
         device_ms=times["push kernel device time (tsd_push_f32 replayed "
                         "from a CUDA graph)"],
         launches_tsd_path=tsd_launches["push"])]
-    for (name, fn, replaces), tag in zip(CASTER, "ABCDE"):
+    for (name, fn, replaces), tag in zip(CASTER, "ABCDED"):
         key = next(k for k in times if k.startswith(f"{tag} {name} kernel"))
         extra = {"launches_tsd_path": tsd_launches[name]}
         library = None
         count = launches[name]
+        if tag == "D":
+            # the wrapper holds no buffer: its launch alone is the wrapper
+            extra.update(kernel_ms=times[key], device_ms=times[next(
+                k for k in times if k.startswith(f"D {name} device time"))])
+        if name == "window_rounds":
+            extra["state_copy_device_ms"] = times[
+                "D window_rounds state copy alone (replayed from a CUDA "
+                "graph)"]
         if name == "pack_rows":
             library = "B pack_rows library (masked_select of 4 dense channels)"
         if name == "compact_channels":
@@ -1354,8 +1528,8 @@ def main() -> int:
                     "E compact_channels library (n=4194304: masked_select "
                     "of 4 channels)"],
                 "bound_ms_4mi_lanes": bounds["compact_channels_large"][0]}
-        kernels.append(entry(name, fn, replaces, key, count,
-                             caster_stats[name]["max_abs_err"], name,
+        kernels.append(entry(SOURCE.get(name, name), fn, replaces, key,
+                             count, caster_stats[name]["max_abs_err"], name,
                              library, **extra))
     for k in kernels:
         assert k["launches"] > 0, k

@@ -12,8 +12,9 @@ over the whole grid as dense [H, W] tensors:
   4. increaseEmptiness for fully traversed tiles.
 
 This is the reference for the CUDA kernel (ops/push_cuda.py), which
-computes the per-cell steps 2-4 only for the tiles step 1 selects.  The
-main path runs this version only for a grid on the CPU.
+takes step 1's decisions per tile itself (tile_cull is their twin) and
+computes the per-cell steps 2-4 only for the tiles it selects.  The main
+path runs this version only for a grid on the CPU.
 """
 
 from __future__ import annotations
@@ -113,8 +114,11 @@ def tile_cull(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     empty_inc = base & all_visible & is_empty
     touch = base & ~empty_inc
 
+    # max_range divides as a tensor, for the IEEE quotient on CUDA too
+    # (see sensor/polar2d.py::back_project)
     dist_clamped = distance.clamp(max=geom.max_range)
-    part_weight = ((geom.max_range - dist_clamped) / geom.max_range) ** 2
+    max_range = torch.full((), geom.max_range, dtype=dtype, device=dev)
+    part_weight = ((geom.max_range - dist_clamped) / max_range) ** 2
     return touch, empty_inc, part_weight
 
 
@@ -183,7 +187,8 @@ def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
     # addTsd (TsdGridPartition.h:170-212)
     accept = do_add & cell_touched & (sd >= -trunc)
-    tsd_new = (sd / trunc).clamp(max=TSDINC)
+    tsd_new = (sd / torch.full((), trunc, dtype=dtype, device=sd.device)
+               ).clamp(max=TSDINC)        # the IEEE quotient on CUDA too
     # the reference's surface weight boost (w = 1 when |sd| < eps) is dead
     # code: eps = -cellSize/2 (TsdGridPartition.cpp:95) never exceeds |sd|
     eps = -grid.cell_size / 2.0

@@ -19,14 +19,15 @@ where a beam can hit first and replays the exact march only there:
      at most UNRESOLVED_CAP of them per round; more count into n_dropped.
 
 The caster is the JAX package's TPU path with the five CUDA kernels of
-ops/ (segment layers, row pack, segment min, window replay, and the channel
-compaction behind the extraction of grids narrower than the fused kernels
-take) in place of its Pallas kernels, and it reads nothing back to the
-host: rounds 2..ROUNDS always run, cheaply (a resolved beam carries
-t_after = +inf through the candidate sweep, and the replays take
-UNRESOLVED_CAP compacted slots).  Each kernel's plain twin lives here
-(`segment_layers_plain`, `pack_rows_plain`, `segment_min_plain`,
-`window_replay_plain`) or in grid/compact.py (`pack_channels_rows`).  A
+ops/ (segment layers, row pack, segment min, window replay with its rounds
+entry point, and the channel compaction behind the extraction of grids
+narrower than the fused kernels take) in place of its Pallas kernels, and
+it reads nothing back to the host: rounds 2..ROUNDS always run, cheaply (a
+resolved beam carries t_after = +inf through the candidate sweep, and one
+launch replays at most UNRESOLVED_CAP beams a round).  Each kernel's plain
+twin lives here (`segment_layers_plain`, `pack_rows_plain`,
+`segment_min_plain`, `window_replay_plain`, `window_rounds_plain`) or in
+grid/compact.py (`pack_channels_rows`).  A
 wrapper launches its kernel for a CUDA tensor (which must be float32: it
 raises otherwise) and runs its twin for a CPU tensor, so a grid on the CPU,
 in float32 or float64, takes the same path on the twins.
@@ -308,7 +309,7 @@ def pack_segments(p0: torch.Tensor, p1: torch.Tensor, valid: torch.Tensor):
 
 
 class CasterKernels(NamedTuple):
-    """The five kernels of the kernel path: the CUDA wrappers of ops/
+    """The kernels of the kernel path: the CUDA wrappers of ops/
     (`cuda_kernels`), or callables with their signatures."""
 
     segment_layers: Callable    # ops/segment_layers_cuda.py (kernel A)
@@ -316,6 +317,7 @@ class CasterKernels(NamedTuple):
     segment_min: Callable       # ops/segment_min_cuda.py (kernel C)
     window_replay: Callable     # ops/window_replay_cuda.py (kernel D)
     compact_channels: Callable  # ops/compact_channels_cuda.py (kernel E)
+    window_rounds: Callable     # ops/window_replay_cuda.py (D's rounds)
 
 
 def cuda_kernels() -> CasterKernels:
@@ -325,10 +327,13 @@ def cuda_kernels() -> CasterKernels:
     from ohm_tsd_slam_tpu_torch.ops.pack_rows_cuda import pack_rows
     from ohm_tsd_slam_tpu_torch.ops.segment_layers_cuda import segment_layers
     from ohm_tsd_slam_tpu_torch.ops.segment_min_cuda import segment_min
-    from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import window_replay
+    from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import (
+        window_replay,
+        window_rounds,
+    )
 
     return CasterKernels(segment_layers, pack_rows, segment_min,
-                         window_replay, compact_channels)
+                         window_replay, compact_channels, window_rounds)
 
 
 def fused_extraction(grid: TsdGrid) -> bool:
@@ -460,13 +465,22 @@ def _taps(tsd: torch.Tensor, s: float, px: torch.Tensor, py: torch.Tensor):
     return torch.where(base_ok, val, math.nan)
 
 
-def window_replay_plain(grid: TsdGrid, tw0: torch.Tensor, ray: torch.Tensor,
-                        idx_max: torch.Tensor, active: torch.Tensor,
-                        tr: torch.Tensor) -> torch.Tensor:
-    """Twin of csrc/window_replay.cu (TPU kernels 5 and 6's contract): the
-    exact-march replay over WINDOW samples from t = tw0 per beam, the
-    sub-cell interpolation of the first event and the central-difference
-    normal there (grid/interpolate.py::interpolate_normal).
+def window_start(k: torch.Tensor, idx_min: torch.Tensor) -> torch.Tensor:
+    """First sample of the replay window around the candidate step k:
+    BACKOFF whole steps before it, in the march's phase (idx_min + whole
+    steps), not before the march's start."""
+    return idx_min + (torch.floor(k - idx_min) - BACKOFF).clamp(min=0.0)
+
+
+def window_replay_plain(grid: TsdGrid, k: torch.Tensor, ray: torch.Tensor,
+                        idx_min: torch.Tensor, idx_max: torch.Tensor,
+                        active: torch.Tensor, tr: torch.Tensor
+                        ) -> torch.Tensor:
+    """Twin of csrc/window_replay.cu's round 1 (TPU kernels 5 and 6's
+    contract): the exact-march replay over WINDOW samples from
+    t = window_start(k, idx_min) per beam, the sub-cell interpolation of
+    the first event and the central-difference normal there
+    (grid/interpolate.py::interpolate_normal).
 
     Returns [N, 8]: hit, any_ev, pos_x, pos_y, interp, nx, ny, n_ok (0/1
     flags); zeros for inactive beams.  Without an event the row holds the
@@ -476,13 +490,13 @@ def window_replay_plain(grid: TsdGrid, tw0: torch.Tensor, ray: torch.Tensor,
     tsd = grid.tsd
     dtype = tsd.dtype
     j = torch.arange(WINDOW, dtype=dtype, device=tsd.device)
-    t_w = tw0[:, None] + j[None, :]                       # [N, W]
+    t_w = window_start(k, idx_min)[:, None] + j[None, :]  # [N, W]
     px = tr[0] + t_w * ray[:, 0:1]
     py = tr[1] + t_w * ray[:, 1:2]
     v = _taps(tsd, s, px, py)
-    hit, any_ev, k, interp = first_event(v, t_w, idx_max)
-    pos_x = torch.gather(px[:, 1:], 1, k)[:, 0]
-    pos_y = torch.gather(py[:, 1:], 1, k)[:, 0]
+    hit, any_ev, k_ev, interp = first_event(v, t_w, idx_max)
+    pos_x = torch.gather(px[:, 1:], 1, k_ev)[:, 0]
+    pos_y = torch.gather(py[:, 1:], 1, k_ev)[:, 0]
 
     cx = pos_x + ray[:, 0] * (interp - 1.0)
     cy = pos_y + ray[:, 1] * (interp - 1.0)
@@ -514,47 +528,63 @@ def _scatter_rows(S: torch.Tensor, idx: torch.Tensor, take: torch.Tensor,
     return ext.index_copy(0, dest, rows)[:N]
 
 
-def _core(grid, segments, ray, tr, idx_min, idx_max, feasible, n_dropped,
-          ks: CasterKernels):
-    """The JAX package's TPU path on the kernels: candidate sweep C at
-    K=1, window replay D for every beam, the K=ROUNDS-1 sweep for the
-    unresolved beams, and ROUNDS-1 replays on UNRESOLVED_CAP compacted
-    slots.  Nothing is read back to the host."""
-    segment_min, window_replay = ks.segment_min, ks.window_replay
-    N = ray.shape[0]
-    cap = unresolved_cap(N)
-    lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
-    hi = torch.ceil(idx_max) + 1.0
-    tr_pack = tr - segments.origin
+def window_rounds_plain(grid: TsdGrid, S: torch.Tensor, lev: torch.Tensor,
+                        ray: torch.Tensor, idx_min: torch.Tensor,
+                        idx_max: torch.Tensor, tr: torch.Tensor, cap: int):
+    """Twin of csrc/window_replay.cu's rounds entry point: rounds
+    2..ROUNDS on the per-beam state S [N, 8] (window_replay_plain's rows,
+    column 1 holding `resolved`).  In round r a beam needs a replay when
+    its candidate lev[:, r] is finite and it is not resolved; the first
+    `cap` needing beams, in beam order, replay the window around that
+    candidate and take the new row when it holds an event; every beam that
+    did not need the round is resolved from then on.
 
-    t_1 = segment_min(segments.pack, segments.count, ray, lo, hi, lo,
-                      tr_pack)[:, 0]
-    has = torch.isfinite(t_1) & feasible
-    k_1 = torch.where(has, t_1, 0.0)
-
-    def t_start(k, im):
-        return im + (torch.floor(k - im) - BACKOFF).clamp(min=0.0)
-
-    # per-beam state [N, 8]: hit, any_ev (-> resolved), pos_x, pos_y,
-    # interp, nx, ny, n_ok
-    S = window_replay(grid, t_start(k_1, idx_min), ray, idx_max, has, tr)
-    resolved = (S[:, 1] > 0.0) | ~has
-    S[:, 1] = resolved.to(S.dtype)
-    if ROUNDS > 1:
-        t_after = torch.where(resolved, math.inf,
-                              torch.maximum(lo, k_1 + COVER))
-        lev = segment_min(segments.pack, segments.count, ray, lo, hi,
-                          t_after, tr_pack, levels=ROUNDS - 1, cover=COVER)
-    for r in range(ROUNDS - 1):
+    Returns (S after the rounds, the argument left as it was; the int64
+    count of needing beams beyond `cap`, summed over the rounds)."""
+    n_dropped = torch.zeros((), dtype=torch.int64, device=S.device)
+    for r in range(lev.shape[1]):
         t_r = lev[:, r]
         need = torch.isfinite(t_r) & ~(S[:, 1] > 0.0)
         n_dropped = n_dropped + (need.sum() - cap).clamp(min=0)
         idx_u, uvalid = compact_mask(need, cap)
         k_u = torch.where(uvalid, t_r[idx_u], 0.0)
-        rows = window_replay(grid, t_start(k_u, idx_min[idx_u]), ray[idx_u],
-                             idx_max[idx_u], uvalid, tr)
+        rows = window_replay_plain(grid, k_u, ray[idx_u], idx_min[idx_u],
+                                   idx_max[idx_u], uvalid, tr)
         S = _scatter_rows(S, idx_u, (rows[:, 1] > 0.0) & uvalid, rows)
         S[:, 1] = torch.maximum(S[:, 1], (~need).to(S.dtype))
+    return S, n_dropped
+
+
+def _core(grid, segments, ray, tr, idx_min, idx_max, feasible, n_dropped,
+          ks: CasterKernels):
+    """The JAX package's TPU path on the kernels: candidate sweep C at
+    K=1, window replay D for every beam, the K=ROUNDS-1 sweep for the
+    unresolved beams, and D's rounds entry point for the ROUNDS-1 later
+    replays.  Nothing is read back to the host."""
+    N = ray.shape[0]
+    lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
+    hi = torch.ceil(idx_max) + 1.0
+    tr_pack = tr - segments.origin
+
+    t_1 = ks.segment_min(segments.pack, segments.count, ray, lo, hi, lo,
+                         tr_pack)[:, 0]
+    has = torch.isfinite(t_1) & feasible
+    k_1 = torch.where(has, t_1, 0.0)
+
+    # per-beam state [N, 8]: hit, any_ev (-> resolved), pos_x, pos_y,
+    # interp, nx, ny, n_ok
+    S = ks.window_replay(grid, k_1, ray, idx_min, idx_max, has, tr)
+    resolved = (S[:, 1] > 0.0) | ~has
+    S[:, 1] = resolved.to(S.dtype)
+    if ROUNDS > 1:
+        t_after = torch.where(resolved, math.inf,
+                              torch.maximum(lo, k_1 + COVER))
+        lev = ks.segment_min(segments.pack, segments.count, ray, lo, hi,
+                             t_after, tr_pack, levels=ROUNDS - 1,
+                             cover=COVER)
+        S, dropped = ks.window_rounds(grid, S, lev, ray, idx_min, idx_max,
+                                      tr, unresolved_cap(N))
+        n_dropped = n_dropped + dropped
 
     hit = S[:, 0] > 0.0
     coords_w = S[:, 2:4] + ray * (S[:, 4:5] - 1.0)

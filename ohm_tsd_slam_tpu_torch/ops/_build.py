@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -32,9 +32,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The fast caster's kernels must round as their torch twins do: no FMA
 # contraction (a*b - c*d fused moves a cross product or a bilinear blend
 # by an ulp, and a sample near zero can flip an event), IEEE division and
-# square root, no flush of denormals.
+# square root, no flush of denormals.  The push decides per tile as
+# grid/push.py::tile_cull does (a corner's beam bin, a range-window edge),
+# so it rounds as its twin as well.
 _IEEE = ["-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false"]
 KERNEL_FLAGS: Dict[str, List[str]] = {
+    "push": _IEEE,
     "segment_layers": _IEEE,
     "pack_rows": _IEEE,
     "segment_min": _IEEE,
@@ -102,6 +105,31 @@ def build_all(names: Iterable[str]) -> None:
             os.replace(tmp, lib_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def resource_usage(name: str, source: Optional[str] = None) -> List[str]:
+    """ptxas's report for the kernels of csrc/<name>.cu built with that
+    kernel's flags (or of another `source` built with them): registers,
+    stack frame, spills, shared memory, one line per fact.  Compiles into
+    a file that is removed."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path(name)}.{os.getpid()}.usage.tmp"
+    cmd = [find_nvcc(), *_flags(name), "--resource-usage", "-o", tmp,
+           source or os.path.join(CSRC_DIR, name + ".cu")]
+    try:
+        out = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             timeout=600)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({out.returncode}) on "
+                           f"{cmd[-1]}:\n{out.stdout}")
+    # the stack frame and spills stand on an indented line of their own
+    # under each function's "ptxas info" line
+    return [line.strip() for line in out.stdout.splitlines()
+            if "ptxas info" in line or "bytes stack frame" in line]
 
 
 def build(name: str) -> str:

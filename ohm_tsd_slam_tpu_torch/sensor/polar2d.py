@@ -66,11 +66,16 @@ def back_project(geom: SensorPolar2D, pose: torch.Tensor,
     IDX_ABOVE_FOV (SensorPolar2D::backProject, SensorPolar2D.cpp:117-135).
 
     The bin is C round() = floor(x + 0.5): the argument is > -0.5 by
-    construction, so half-away-from-zero and floor(x + 0.5) agree.
+    construction, so half-away-from-zero and floor(x + 0.5) agree.  The
+    resolution divides as a tensor: on CUDA, torch turns a division by a
+    Python number into a product with its reciprocal, which is not the
+    IEEE quotient that the CPU and the push kernel (csrc/push.cu) take.
     """
     local = se2.transform_points(se2.invert(pose), points)
     phi = torch.atan2(local[..., 1], local[..., 0])
-    idx = torch.floor((phi - geom.phi_min) / geom.angular_res + 0.5)
+    res = torch.full((), geom.angular_res, dtype=phi.dtype,
+                     device=phi.device)
+    idx = torch.floor((phi - geom.phi_min) / res + 0.5)
     idx = idx.to(torch.int32)
     below = torch.full_like(idx, IDX_BELOW_FOV)
     above = torch.full_like(idx, IDX_ABOVE_FOV)

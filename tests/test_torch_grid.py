@@ -65,8 +65,8 @@ def _scan(xyt):
                          segments=walls, circles=[((7.0, 7.2), 0.5)])
 
 
-def _push_both(poses, dtype_np, ranges=None):
-    """Push the same scans into a JAX grid and a port grid."""
+def _push_both(poses, dtype_np, ranges=None, push=push):
+    """Push the same scans into a JAX grid and a port grid (by `push`)."""
     jdt = jnp.dtype(dtype_np)
     tdt = torch.float64 if dtype_np == np.float64 else torch.float32
     jg_geom = jpolar.SensorPolar2D(**GEOM)
@@ -124,6 +124,20 @@ def test_push_matches_jax_f64(case, pushed64):
     # fused multiply-adds differs
     _assert_grids_equal(jg, tg, 1e-12)
     assert np.isfinite(to_arrays(tg)["tsd"]).sum() > 1000
+
+
+def test_push_wrapper_on_cpu_matches_jax_f64(pushed64):
+    """ops/push_cuda.py::push_cuda takes the plain push for a grid on the
+    CPU: equal to it in every bit, and to JAX as the plain push is."""
+    from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
+
+    launches = push_cuda.launches
+    jg, tg = _push_both(POSES, np.float64, push=push_cuda)
+    assert push_cuda.launches == launches
+    _assert_grids_equal(jg, tg, 1e-12)
+    got, want = to_arrays(tg), to_arrays(pushed64[1])
+    for f in GRID_FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
 
 
 @pytest.mark.parametrize("case", ["sensor_outside", "all_masked"])

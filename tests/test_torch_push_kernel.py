@@ -27,12 +27,14 @@ from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
 from ohm_tsd_slam_tpu_torch.grid.push import push
 from ohm_tsd_slam_tpu_torch.grid.state import create, to_arrays
+from ohm_tsd_slam_tpu_torch.ops.kernel_check import PushCheck
 from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
 from ohm_tsd_slam_tpu_torch.sensor import polar2d
 from ohm_tsd_slam_tpu_torch.utils.testing import rect_walls, simulate_scan
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = GridConfig(map_size=8, cellsize=0.04)       # 256^2, 32x32 tiles
+CFG_NARROW = GridConfig(map_size=6, cellsize=0.16)  # 64^2, 2x2 tiles
 GEOM = polar2d.SensorPolar2D(size=541, angular_res=math.radians(0.5),
                              phi_min=math.radians(-135.0), max_range=8.0,
                              min_range=0.01, low_reflectivity_range=1.0)
@@ -87,6 +89,15 @@ def test_cpu_dispatch_takes_plain_push():
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
 
 
+def test_cull_output_is_the_kernels_alone():
+    """`cull` is written by the kernel; a CPU grid has none to write it."""
+    grid = create(CFG, dtype=torch.float32)
+    pose, data, mask = _scan(POSES[0], torch.float32, "cpu")
+    with pytest.raises(ValueError, match="cull"):
+        push_cuda(grid, GEOM, pose, data, mask,
+                  cull=torch.empty((grid.tiles_y, grid.tiles_x, 3)))
+
+
 def test_import_needs_no_compiler(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path),
                CUDA_HOME=str(tmp_path / "none"))
@@ -134,3 +145,49 @@ def test_kernel_edge_cases(cuda_device, xyt):
     g_ker = push_cuda(grid, GEOM, pose, data, mask)
     torch.cuda.synchronize()
     _compare(push(grid, GEOM, pose, data, mask), g_ker)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [CFG, CFG_NARROW], ids=["256", "64"])
+def test_cull_matches_tile_cull(cuda_device, cfg):
+    """The kernel's per-tile decisions (touch, empty_inc, part_weight) and
+    its tile_init / tile_initw against grid/push.py::tile_cull and
+    next_tile_initw, equal on every tile of every push (PushCheck raises
+    otherwise); the old grid is not written; one launch a push and the
+    pushed cells within the bounds of `_compare`."""
+    check = PushCheck()
+    g_ref = g_ker = create(cfg, dtype=torch.float32, device=cuda_device)
+    before = push_cuda.launches
+    for xyt in POSES + [(5.6, 4.7, 1.0), (50.0, 50.0, 0.0)]:
+        pose, data, mask = _scan(xyt, torch.float32, cuda_device)
+        old = {f: getattr(g_ker, f).clone()
+               for f in ("tsd", "weight", "tile_init", "tile_initw")}
+        g_new = check(g_ker, GEOM, pose, data, mask)
+        g_ref = push(g_ref, GEOM, pose, data, mask)
+        torch.cuda.synchronize()
+        for f, t in old.items():
+            assert torch.equal(torch.nan_to_num(getattr(g_ker, f), nan=-9.0),
+                               torch.nan_to_num(t, nan=-9.0)), f
+            assert getattr(g_new, f).data_ptr() != getattr(g_ker, f).data_ptr()
+        g_ker = g_new
+    assert push_cuda.launches == before + 5
+    st = check.stats
+    assert st["calls"] == 5 and st["touched"] > 0, st
+    assert st["tiles"] == 5 * g_ker.tile_init.numel(), st
+    assert st["touch_flips"] == st["empty_inc_flips"] == 0, st
+    assert st["part_weight_max_abs_err"] == 0.0, st
+    _compare(g_ref, g_ker)
+
+
+@pytest.mark.cuda
+def test_all_masked_scan_touches_no_tile(cuda_device):
+    grid = create(CFG, dtype=torch.float32, device=cuda_device)
+    pose = se2.make(5.0, 5.0, 0.0, dtype=torch.float32, device=cuda_device)
+    data = torch.full((GEOM.size,), 3.0, device=cuda_device)
+    mask = torch.zeros(GEOM.size, dtype=torch.bool, device=cuda_device)
+    check = PushCheck()
+    out = check(grid, GEOM, pose, data, mask)
+    torch.cuda.synchronize()
+    assert check.stats["touched"] == check.stats["emptied"] == 0
+    assert not bool(out.tile_init.any())
+    assert bool(torch.isnan(out.tsd).all()) and not bool(out.weight.any())

@@ -394,10 +394,11 @@ def test_window_replay_matches_jax(scene32):
     k = torch.where(act, k_1[idx], 0.0)
     tw0 = idx_min[idx] + (torch.floor(k - idx_min[idx]) - rf.BACKOFF).clamp(
         min=0.0)
-    out = window_replay(tg, tw0, ray[idx], idx_max[idx], act, tr).numpy()
-    np.testing.assert_array_equal(
-        out, rf.window_replay_plain(tg, tw0, ray[idx], idx_max[idx], act,
-                                    tr).numpy())
+    args = (tg, k, ray[idx], idx_min[idx], idx_max[idx], act, tr)
+    out = window_replay(*args).numpy()
+    np.testing.assert_array_equal(out, rf.window_replay_plain(*args).numpy())
+    np.testing.assert_array_equal(tw0.numpy(),
+                                  rf.window_start(k, idx_min[idx]).numpy())
 
     j = lambda t: jnp.asarray(t.numpy())              # noqa: E731
     r_hit, r_any, r_pos, r_int = jrf._window_events(
@@ -638,9 +639,12 @@ def test_cpu_grid_runs_the_twins(scene, monkeypatch):
     and float64 alike) and counts no launch."""
     import importlib
 
-    names = ("segment_layers", "pack_rows", "segment_min", "window_replay")
-    mods = [importlib.import_module(f"ohm_tsd_slam_tpu_torch.ops.{n}_cuda")
-            for n in names]
+    names = ("segment_layers", "pack_rows", "segment_min", "window_replay",
+             "window_rounds")
+    mods = [importlib.import_module(
+        "ohm_tsd_slam_tpu_torch.ops."
+        f"{'window_replay' if n == 'window_rounds' else n}_cuda")
+        for n in names]
     calls = []
     for n, mod in zip(names, mods):
         twin = getattr(mod, f"{n}_plain")
@@ -658,6 +662,8 @@ def test_cpu_grid_runs_the_twins(scene, monkeypatch):
     assert res.mask.sum() > 100 and res.coords.dtype == tg.tsd.dtype
     assert sorted(set(calls)) == sorted(names)
     assert calls.count("segment_min") == 2
-    assert calls.count("window_replay") == rf.ROUNDS
+    # round 1, then one call for rounds 2..ROUNDS
+    assert calls.count("window_replay") == 1
+    assert calls.count("window_rounds") == 1
     assert launches == [getattr(mod, n).launches
                         for n, mod in zip(names, mods)]

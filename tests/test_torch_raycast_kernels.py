@@ -107,11 +107,13 @@ def test_cpu_check_runs_the_twins(cfg, extraction):
     grid = _room("cpu", cfg)
     check, _, res, exact = _check(grid, POSES[0])
     ran = {name for name, st in check.stats.items() if st["calls"]}
-    assert ran == {"segment_min", "window_replay", *extraction}
+    assert ran == {"segment_min", "window_replay", "window_rounds",
+                   *extraction}
     for name, st in check.stats.items():
         assert st["max_abs_err"] == 0.0, (name, st)
     assert check.stats["segment_min"]["calls"] == 2          # K=1, K=3
-    assert check.stats["window_replay"]["calls"] == rf.ROUNDS
+    assert check.stats["window_replay"]["calls"] == 1        # round 1
+    assert check.stats["window_rounds"]["calls"] == 1        # rounds 2..4
     assert int(res.n_dropped) == 0 and res.mask.sum() > 300
     _assert_agrees_with_exact(res, exact)
 
@@ -204,7 +206,11 @@ def test_kernels_match_twins_in_the_rounds(cuda_device):
     grid = _field("sliver", cuda_device)
     check, _, res, exact = _check(grid, (2.0, 5.12, 0.3))
     torch.cuda.synchronize()
-    assert check.stats["window_replay"]["calls"] == rf.ROUNDS
+    assert check.stats["window_replay"]["calls"] == 1
+    assert check.stats["window_rounds"]["calls"] == 1
+    new_hits = [f["new_hits"] for n, _, f in check.log
+                if n == "window_rounds"]
+    assert new_hits[0] > 10                      # hits found in the rounds
     assert torch.equal(res.mask, exact.mask)
     x = se2.transform_points(se2.make(2.0, 5.12, 0.3, device=cuda_device),
                              res.coords)[:, 0]
