@@ -8,8 +8,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 1. device: requires torch.cuda; prints the card's name and power limit;
 2. build: deletes and recompiles every CUDA kernel of the main paths from
    csrc/ (six libraries, one nvcc process each, all started together), and
-   prints ptxas's registers and stack frame of the push and window replay
-   kernels;
+   prints ptxas's registers and stack frame of the push, window replay,
+   candidate sweep, row pack and channel compaction kernels (none may have
+   a stack frame or spill);
 3. kernel check: the push kernel against the plain push, both float32 on
    the card, at 1024^2 / 0.025 m / 1081 beams (three poses into one grid,
    a sensor outside the grid, an all-masked scan), its per-tile cull
@@ -23,13 +24,20 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    capacity (the node falls back to the exact march), an empty grid, a
    sensor outside the grid; the rounds kernel also with a capacity of 4 on
    the sliver (more needing beams than replays: the drop counts must be
-   equal) and with no needing beam; the channel compaction (kernel E)
+   equal) and with no needing beam; the candidate sweep (kernel C) at K =
+   1, 3 and 4 on the sliver, on the noise field's full pack, with a count
+   of 0, with every beam resolved and on a fence of segments that the
+   forward beams cross one and all (more candidates than a beam keeps in
+   shared memory); the row pack (kernel B, whose prefix is a look-back
+   across blocks) on 2048^2 fields (512 tiles: more than are resident at
+   once; one that overflows the pack) and 200 launches on one input, which
+   must give the same bits; the channel compaction (kernel E)
    against its twin, bit for bit, on the noise field's layer stack
    (overflow), an empty and a full mask, channels with NaN and Inf, a
    float mask, n = 16384;
 4. main paths, each with the launch counts set to 0 before and read after
-   (one push launch a push, A and B or E once per grid version, C twice
-   and D's two entry points once each per scan):
+   (one push launch a push, A and B or E once per grid version, C and D's
+   two entry points once each per scan):
    a. ICP mode: SlamNode with configs/double-laser.yaml's settings (two
       robots sharing the grid, 25 ICP iterations, the fast caster), ~30
       simulated scans per robot through process_scan, then publish_map;
@@ -54,10 +62,10 @@ time beside its bound on this card (the larger of the bytes the function
 must move over the HBM rate and its operations over the float32 rate, both
 counted by `kernel_bounds` from this run's inputs) and, where one PyTorch
 call computes the same function, that call's time.  A row's `ms` is its
-wrapper's time; the push kernel, kernel D's two entry points and kernel E
-also carry `kernel_ms` (the launch alone on held buffers; for D the
-wrapper, which holds nothing) and `device_ms` (that launch replayed from a
-CUDA graph: the device's share without the host's).  The last line is
+wrapper's time; `kernel_ms` is the launch alone on held buffers (for A and
+D the wrapper, which holds nothing but its result) and `device_ms` that
+launch replayed from a CUDA graph: the device's share without the host's.
+The last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
 Imports nothing of JAX.
 """
@@ -262,8 +270,10 @@ def compact_launch(mask, chans, size):
                          dtype=torch.float32, device=dev)
     row_cnt = torch.empty(mask.numel() // cc.ROW, dtype=torch.int32,
                           device=dev)
-    row_off, total = torch.empty_like(row_cnt), row_cnt.new_empty(1)
-    return lambda: cc.launch(mask, chans, packed, row_cnt, row_off, total)
+    status = torch.empty(cc.status_words(row_cnt.numel()), dtype=torch.int64,
+                         device=dev)
+    total = row_cnt.new_empty(1)
+    return lambda: cc.launch(mask, chans, packed, row_cnt, status, total)
 
 
 def compare_push(g_ref, g_ker) -> dict:
@@ -382,7 +392,7 @@ def caster_check(dev, total: dict) -> dict:
                                             rounds_args=rounds_args)
     x_hit = (res.coords[:, 0] * math.cos(xyt[2])
              - res.coords[:, 1] * math.sin(xyt[2]) + xyt[0])
-    # C at K=1 then K=ROUNDS-1; D on all beams, then its rounds in one call
+    # C once at K=ROUNDS; D on all beams, then its rounds in one call
     mins = [f["finite"] for n, _, f in check.log if n == "segment_min"]
     replays = [f["hits"] for n, _, f in check.log if n == "window_replay"]
     rounds = [f for n, _, f in check.log if n == "window_rounds"]
@@ -390,8 +400,8 @@ def caster_check(dev, total: dict) -> dict:
                          wall_hits=int((res.mask & (x_hit > 17.0)).sum()),
                          segment_min_finite=mins, window_replay_hits=replays,
                          window_rounds=rounds)
-    assert len(mins) == 2 and len(mins[1]) == rf.ROUNDS - 1, out["sliver"]
-    assert mins[1][0] > 0 and len(replays) == len(rounds) == 1, out["sliver"]
+    assert len(mins) == 1 and len(mins[0]) == rf.ROUNDS, out["sliver"]
+    assert mins[0][1] > 0 and len(replays) == len(rounds) == 1, out["sliver"]
     assert rounds[0]["new_hits"] > 10, out["sliver"]   # hits in the rounds
     assert rounds[0]["dropped"] == 0, out["sliver"]
     assert out["sliver"]["wall_hits"] > 10, out["sliver"]
@@ -449,6 +459,107 @@ def caster_check(dev, total: dict) -> dict:
         check, seg, res, exact = checked_render(grid, geom, xyt, total)
         out[name] = dict(agreement(res, exact), segments=int(seg.count))
         assert not res.mask.any() and not exact.mask.any(), out[name]
+    return out
+
+
+def blob_field(cells: int, seed: int) -> np.ndarray:
+    """A sliver, a wall and scattered 5 x 5 blobs: segments in rows all
+    over the layer mask, a few thousand of them."""
+    from ohm_tsd_slam_tpu_torch.utils.testing import sliver_field
+
+    rng = np.random.default_rng(seed)
+    f = sliver_field(cells, cells // 3, cells // 2)
+    for _ in range(40):
+        y, x = rng.integers(8, cells - 8, 2)
+        f[y - 2:y + 3, x - 2:x + 3] = -0.2
+    return f
+
+
+def sweep_pack_check(dev, total: dict) -> dict:
+    """Kernel C at K = 1, 3 and 4 (sliver, the noise field's full pack,
+    count 0, every beam resolved, a fence of segments that overflows a
+    beam's candidate list) and kernel B beyond the 1024^2 grids of
+    the renders (2048^2: 512 tiles; an overflow there; 200 launches on
+    one input), each against its twin."""
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.state import from_arrays
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck
+    from ohm_tsd_slam_tpu_torch.utils.testing import (
+        fence_segments,
+        field_arrays,
+        noise_field,
+        sliver_field,
+    )
+
+    def grid_of(f):
+        return from_arrays(field_arrays(f.astype(np.float32), 0.025),
+                           device=dev)
+
+    check = KernelCheck()
+    geom = geom_1081()
+    out = {}
+    fields = {"sliver": (sliver_field(CELLS, 600, 700, rows=(472, 552)),
+                         (10.0, 12.8, 0.05)),
+              "noise_full_pack": (noise_field(CELLS, seed=3),
+                                  (12.8, 12.8, 0.0))}
+    for name, (f, xyt) in fields.items():
+        grid = grid_of(f)
+        seg = rf.extract_segments(grid)
+        ray, tr, idx_min, idx_max, _ = rf.beam_geometry(
+            grid, geom, se2.make(*xyt, device=dev))
+        lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
+        hi = torch.ceil(idx_max) + 1.0
+        tr_pack = (tr - seg.origin).contiguous()
+        cases = {name: (seg.pack, seg.count, lo)}
+        if name == "sliver":
+            cases["count_0"] = (seg.pack, torch.zeros_like(seg.count), lo)
+            cases["all_resolved"] = (seg.pack, seg.count,
+                                     torch.full_like(lo, math.inf))
+            # a fence before the sensor: the forward beams cross all 4096
+            # segments, more candidates than a beam keeps in shared memory
+            p0, p1 = (torch.as_tensor(p, dtype=torch.float32, device=dev)
+                      for p in fence_segments(4096, float(tr_pack[0]) + 0.5,
+                                              float(tr_pack[1])))
+            cases["fence"] = (*rf.pack_segments(p0, p1, torch.ones(
+                4096, dtype=torch.bool, device=dev)), lo)
+        for case, (pack, count, t_after) in cases.items():
+            for levels in (1, rf.ROUNDS - 1, rf.ROUNDS):
+                check.kernels.segment_min(pack, count, ray, lo, hi, t_after,
+                                          tr_pack, levels, rf.COVER)
+            out[f"C {case}"] = {"segments": int(count),
+                                "finite": check.log[-1][2]["finite"]}
+    assert out["C noise_full_pack"]["segments"] == rf.MAX_SEGMENTS, out
+    assert min(out["C sliver"]["finite"][:2]) > 0, out
+    assert min(out["C fence"]["finite"]) > 100, out
+    assert not any(out["C count_0"]["finite"]), out
+    assert not any(out["C all_resolved"]["finite"]), out
+    assert check.stats["segment_min"] == {"calls": 15, "max_abs_err": 0.0}
+
+    S = rf.MAX_SEGMENTS
+    for name, f in (("2048", blob_field(2 * CELLS, seed=11)),
+                    ("2048_overflow", noise_field(2 * CELLS, seed=5))):
+        grid = grid_of(f)
+        mask, row_cnt = check.kernels.segment_layers(grid)
+        packed, count = check.kernels.pack_rows(grid, mask, row_cnt, S)
+        wrapper = caster_wrappers()["pack_rows"]
+        same = 0
+        for _ in range(200):
+            again, count2 = wrapper(grid, mask, row_cnt, S)
+            same += int(torch.equal(again.view(torch.int32),
+                                    packed.view(torch.int32))
+                        and torch.equal(count2, count))
+        out[f"B {name}"] = {"tiles": row_cnt.numel() // 256,
+                            "segments": int(count),
+                            "stored": int((packed[4] > 0).sum()),
+                            "launches_equal": same}
+        assert same == 200, out
+    assert 1000 < out["B 2048"]["segments"] <= S, out
+    assert out["B 2048_overflow"]["segments"] > S + 128, out
+    assert out["B 2048_overflow"]["stored"] == S + 128, out
+    assert check.stats["pack_rows"] == {"calls": 2, "max_abs_err": 0.0}
+    torch.cuda.synchronize()
+    merge_stats(total, check)
     return out
 
 
@@ -637,12 +748,12 @@ def main_path(dev, label: str, push_check):
           f"publish_map in {wall:.3f} s (first-call overheads included) "
           f"[{label}]")
     assert all(loc.params.fast_raycast for loc in node.localizers)
-    # one launch a push; A and B once per grid version; C twice and D's
-    # two entry points once each per scan (rays_dropped 0 on every scan: no
+    # one launch a push; A and B once per grid version; C and D's two
+    # entry points once each per scan (rays_dropped 0 on every scan: no
     # scan fell back to the exact march)
     assert launches["push"] == n_pushes > 2, launches
     assert launches["segment_layers"] == launches["pack_rows"] >= updates
-    assert launches["segment_min"] == 2 * n_scans, launches
+    assert launches["segment_min"] == n_scans, launches
     assert launches["window_replay"] == n_scans, launches
     assert launches["window_rounds"] == n_scans, launches
     assert launches["compact_channels"] == 0, launches   # a 1024-wide grid
@@ -792,7 +903,7 @@ def narrow_path(dev, label: str, total: dict, push_check):
     # B never; C and D as on every path
     assert launches["compact_channels"] == run["updates"] > 2, launches
     assert launches["segment_layers"] == launches["pack_rows"] == 0
-    assert launches["segment_min"] == 2 * run["n_scans"], launches
+    assert launches["segment_min"] == run["n_scans"], launches
     assert launches["window_replay"] == run["n_scans"], launches
     assert launches["window_rounds"] == run["n_scans"], launches
     assert launches["push"] == n_pushes >= run["updates"], launches
@@ -865,7 +976,7 @@ def ransac_paths(dev, label: str, push_check):
         assert err < limit, (mode, err)
         la = run["launches"]
         assert la["segment_layers"] == la["pack_rows"] >= run["updates"], la
-        assert la["segment_min"] == 2 * run["n_scans"], la
+        assert la["segment_min"] == run["n_scans"], la
         assert la["window_replay"] == la["window_rounds"] == run["n_scans"]
         assert la["push"] == n_pushes >= run["updates"] > 2, la
         return node, run
@@ -1036,8 +1147,24 @@ def stage_times(node, label: str) -> dict:
         lambda: ks["segment_layers"](grid))
     t["A segment_layers plain"] = time_cuda(
         lambda: rf.segment_layers_plain(grid))
+    # A's wrapper holds nothing but its two results: its device work is the
+    # wrapper replayed from a CUDA graph
+    t["A segment_layers device time (replayed from a CUDA graph)"] = \
+        time_device(lambda: ks["segment_layers"](grid))
     t["B pack_rows kernel"] = time_cuda(
         lambda: ks["pack_rows"](grid, lmask, rows, S))
+    from ohm_tsd_slam_tpu_torch.ops import pack_rows_cuda
+
+    b_buf = pack_rows_cuda.empty_pack(grid.tsd.device, rows.numel(), S)
+    b_total = rows.new_empty(1)
+
+    def b_launch():
+        pack_rows_cuda.launch(grid, lmask, rows, b_buf, b_total)
+
+    t["B pack_rows launch alone (pack_rows_f32 on held buffers)"] = \
+        time_cuda(b_launch)
+    t["B pack_rows device time (replayed from a CUDA graph)"] = \
+        time_device(b_launch)
     t["B pack_rows plain"] = time_cuda(
         lambda: rf.pack_rows_plain(grid, lmask, S))
     # the one PyTorch call that computes B's and E's function: boolean
@@ -1073,10 +1200,30 @@ def stage_times(node, label: str) -> dict:
     hi = torch.ceil(idx_max) + 1.0
     tr_pack = (tr - seg.origin).contiguous()
     cargs = (seg.pack, seg.count, ray, lo, hi, lo, tr_pack)
-    t["C segment_min kernel (K=1)"] = time_cuda(
-        lambda: ks["segment_min"](*cargs))
-    t["C segment_min plain (K=1)"] = time_cuda(
-        lambda: rf.segment_min_plain(*cargs))
+    from ohm_tsd_slam_tpu_torch.ops import segment_min_cuda
+
+    def c_times(tag, args, levels):
+        """Kernel C's wrapper, twin, launch alone and device work at one
+        set of arguments."""
+        out = torch.empty((ray.shape[0], levels), dtype=torch.float32,
+                          device=ray.device)
+
+        def c_launch():
+            segment_min_cuda.launch(*args[:7], out, rf.COVER)
+
+        t[f"C segment_min kernel ({tag})"] = time_cuda(
+            lambda: ks["segment_min"](*args[:7], levels, rf.COVER))
+        t[f"C segment_min plain ({tag})"] = time_cuda(
+            lambda: rf.segment_min_plain(*args[:7], levels, rf.COVER))
+        t[f"C segment_min launch alone ({tag}: segment_min_f32 on a held "
+          "result)"] = time_cuda(c_launch)
+        t[f"C segment_min device time ({tag}: replayed from a CUDA "
+          "graph)"] = time_device(c_launch)
+
+    # the one sweep a scan of the main path, then the two sweeps it
+    # replaced (K=1 for every beam, K=ROUNDS-1 for the unresolved ones)
+    c_times(f"K={rf.ROUNDS}, one sweep a scan", cargs, rf.ROUNDS)
+    c_times("K=1", cargs, 1)
     t_1 = ks["segment_min"](*cargs)[:, 0]
     has = torch.isfinite(t_1) & feasible
     k_1 = torch.where(has, t_1, 0.0)
@@ -1090,20 +1237,18 @@ def stage_times(node, label: str) -> dict:
     t["D window_replay device time (round 1, replayed from a CUDA graph)"] = \
         time_device(lambda: ks["window_replay"](*dargs))
 
-    # the rounds as the main path launches them: C at K=ROUNDS-1 for the
-    # beams round 1 left unresolved, then D's rounds entry point once
+    # the rounds on the candidates of the beams round 1 left unresolved
+    # (C at K=ROUNDS-1 from t_after gives the same levels as the later
+    # columns of the main path's one sweep), D's rounds entry point once
     S0 = ks["window_replay"](*dargs)
     resolved = (S0[:, 1] > 0.0) | ~has
     S0[:, 1] = resolved.to(S0.dtype)
     t_after = torch.where(resolved, math.inf,
                           torch.maximum(lo, k_1 + rf.COVER))
-    c3args = (seg.pack, seg.count, ray, lo, hi, t_after, tr_pack,
-              rf.ROUNDS - 1, rf.COVER)
-    t["C segment_min kernel (K=3, rounds)"] = time_cuda(
-        lambda: ks["segment_min"](*c3args))
-    t["C segment_min plain (K=3, rounds)"] = time_cuda(
-        lambda: rf.segment_min_plain(*c3args))
-    lev = ks["segment_min"](*c3args)
+    c3args = (seg.pack, seg.count, ray, lo, hi, t_after, tr_pack)
+    c_times(f"K={rf.ROUNDS - 1} from t_after, the unresolved beams", c3args,
+            rf.ROUNDS - 1)
+    lev = ks["segment_min"](*c3args, rf.ROUNDS - 1, rf.COVER)
     cap = rf.unresolved_cap(ray.shape[0])
     rargs = (lev, ray, idx_min, idx_max, tr.contiguous(), cap)
     # the kernel resolves its state in place: every timed call gets a
@@ -1124,7 +1269,8 @@ def stage_times(node, label: str) -> dict:
     needing = [int(n) for n in torch.isfinite(lev).sum(0)]
     print(f"rounds: beams with a candidate in rounds 2-4 of the timed call: "
           f"{needing} (capacity {cap})")
-    facts.update(rounds_needing=sum(needing), rounds=rf.ROUNDS - 1)
+    facts.update(rounds_needing=sum(needing), rounds=rf.ROUNDS - 1,
+                 sweep_levels=rf.ROUNDS)
 
     t["raycast_fast (cached segments, kernels)"] = time_cuda(
         lambda: rf.raycast_fast(grid, geom, pose, segments=seg))
@@ -1342,10 +1488,15 @@ def kernel_bounds(facts: dict) -> dict:
         # a segment, the pack written (zeros included)
         "pack_rows": (rows * 4 + facts["nonzero_rows"] * 512 + segs * 16
                       + 5 * cap * 4, segs * 40),
-        # K = 1: the kept segments' 8 pack rows, 7 values a beam, one t
-        # out; ~20 operations a beam-segment pair
-        "segment_min": (segs * 32 + beams * 28 + beams * 4,
-                        beams * segs * 20),
+        # the main path's one sweep of K levels: the kept segments' 8 pack
+        # rows, 7 values a beam, K values out; ~20 operations a
+        # beam-segment pair, once (a pair's t does not depend on the level:
+        # a later level only compares a beam's candidates, some tens of its
+        # pairs, against the new bound, counted as one compare a beam)
+        "segment_min": (segs * 32 + beams * 28
+                        + beams * 4 * facts["sweep_levels"],
+                        beams * segs * 20
+                        + beams * (facts["sweep_levels"] - 1)),
         # round 1: 8 samples + 4 normal taps of 4 cells a beam, 7 values
         # in, 8 out; ~25 operations a tap
         "window_replay": (beams * (12 * 16 + 28 + 32), beams * 12 * 25),
@@ -1399,7 +1550,8 @@ def main() -> int:
         _build.load(name)
     print(f"build {len(names)} sources in csrc/ with nvcc, in parallel: "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in ("push", "window_replay"):
+    for name in ("push", "window_replay", "segment_min", "pack_rows",
+                 "compact_channels"):
         frames = []
         for line in _build.resource_usage(name):
             if ("Used" in line or "Function properties" in line
@@ -1407,7 +1559,7 @@ def main() -> int:
                 print(f"ptxas csrc/{name}.cu: {line}")
             if "stack frame" in line:
                 frames.append(line)
-        # neither kernel indexes a local array at run time or spills
+        # no kernel of these indexes a local array at run time or spills
         assert frames and all(f.startswith("0 bytes stack frame, 0 bytes "
                                            "spill stores") for f in frames), \
             (name, frames)
@@ -1424,6 +1576,8 @@ def main() -> int:
     caster_stats: dict = {}
     for name, stats in caster_check(dev, caster_stats).items():
         print(f"kernel check caster {name}: {json.dumps(stats)}")
+    for name, stats in sweep_pack_check(dev, caster_stats).items():
+        print(f"kernel check sweep and pack {name}: {json.dumps(stats)}")
     for name, stats in compact_check(dev, caster_stats).items():
         print(f"kernel check compact_channels {name}: {json.dumps(stats)}")
 
@@ -1490,10 +1644,15 @@ def main() -> int:
         extra = {"launches_tsd_path": tsd_launches[name]}
         library = None
         count = launches[name]
-        if tag == "D":
-            # the wrapper holds no buffer: its launch alone is the wrapper
-            extra.update(kernel_ms=times[key], device_ms=times[next(
-                k for k in times if k.startswith(f"D {name} device time"))])
+        # the first time of that name is the main path's call (for C the
+        # one sweep of K=ROUNDS).  A's and D's wrappers hold no buffer:
+        # their launch alone is the wrapper
+        alone = [times[k] for k in times
+                 if k.startswith(f"{tag} {name} launch alone")]
+        extra.update(kernel_ms=alone[0] if alone else times[key],
+                     device_ms=next(
+                         times[k] for k in times
+                         if k.startswith(f"{tag} {name} device time")))
         if name == "window_rounds":
             extra["state_copy_device_ms"] = times[
                 "D window_rounds state copy alone (replayed from a CUDA "
@@ -1535,9 +1694,8 @@ def main() -> int:
         assert k["launches"] > 0, k
         # the bound is held against the device's share where that was
         # measured, else against the wrapper's time
-        own = k.get("device_ms", k["ms"])
-        apart = ("not timed apart" if "kernel_ms" not in k else
-                 f"launch alone {k['kernel_ms']:.4f} ms, device "
+        own = k["device_ms"]
+        apart = (f"launch alone {k['kernel_ms']:.4f} ms, device "
                  f"{k['device_ms']:.4f} ms")
         library = ("none" if k["library_ms"] is None
                    else f"{k['library_ms']:.4f} ms")

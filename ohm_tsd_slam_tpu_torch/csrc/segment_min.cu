@@ -12,19 +12,37 @@
 //   candidate iff valid, |denom| > eps, u in [0, 1], t in [lo, hi],
 //   t >= bound.
 //
-// Design.  1081 beams make only 9 blocks of 128, so the segment axis is
-// split across blocks too: block (i, j) takes beams 128i.. and segments
-// 256j.., stages its segments in shared memory, and folds each beam's
-// minimum into the output with atomicMin on the float's bits (a valid t is
-// >= lo >= 0, where float order is int order; -0.0 is written as +0.0).
-// Each level depends on the previous level's final minimum, so a level is
-// one launch after the one before on the stream.  A block whose chunk lies
-// past `count`, or whose beams all have bound = +inf (resolved beams,
-// padding), returns before it loads anything.
+// Design: one launch for every level, a block of four warps a beam.  The
+// beam's 128 lanes stride the segments, each keeps its own minimum, and a
+// shuffle reduction and one barrier give the beam's level; every thread then
+// holds that level in a register, adds `cover` and sweeps again.  A beam has
+// one owner, so there is no atomic in global memory and no fill of the
+// output, and no block waits for another: 1081 beams are 1081 blocks, some
+// ten of them resident on each of the 132 SMs.  A beam's sweep is a chain of
+// loads and divisions, so its time is their latency: four warps a beam cut
+// the chain to a quarter of a warp's and put enough warps on an SM to hide it
+// at any segment count (a warp a beam was measured four times slower than
+// the sweep it replaced at 32768 segments).  A lane starts the loads of four
+// pairs together.
+// Level 0 computes each pair's t once.  Few pairs are candidates whatever the
+// bound (the beam must cross the segment inside [lo, hi]: tens of a map's
+// thousands), so level 0 appends those t to a list in shared memory, in any
+// order, and the later levels only compare the list against the new bound,
+// whatever the segment count.  A beam with more than kCache candidates
+// computes every pair anew in every later level.  The pack is read through
+// the read-only cache: once a beam, 50 KB at 1800 segments, which
+// neighbouring beams find in L1 or L2.
 //
-// Bound.  Arithmetic: ~25 flops and two divisions per pair, 1081 x ~20k
-// pairs per level at 1024^2, a few tens of microseconds; the device count is
-// read on the device, so the launch never waits on the host.
+// The float minimum is exact and free of order, so a level equals the
+// twin's amin in value whatever the order of the lanes or of the list.
+// Where +0.0 and -0.0 both are candidates the sign of the zero returned may
+// differ from the twin's (fminf and the order choose); as a bound both act
+// alike.  A beam whose t_after is +inf (resolved, padding), or a pack with no
+// segment, writes +inf in every level and reads no segment.
+//
+// Bound.  Operations: ~20 and two divisions per pair in level 0, a compare
+// per candidate after; the device count is read on the device, so the launch
+// never waits on the host.
 //
 // Built with -fmad=false and IEEE division (ops/_build.py): t and u must
 // equal the twin's bit for bit.
@@ -34,93 +52,147 @@
 
 namespace {
 
-constexpr int kBeams = 128;
-constexpr int kSegs = 256;
-constexpr int kRows = 7;  // pack rows used: ex ey p0x p0y c0p valid eps
+constexpr int kWarps = 4;  // warps a beam
+constexpr int kLanes = 32 * kWarps;
+constexpr int kCache = 2048;  // candidates a beam keeps in shared memory
+constexpr int kBatch = 4;  // pairs a lane has in flight
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void fill_inf_kernel(float* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = INFINITY;
+struct Beam {
+  float rayx, rayy, trx, try_, c1tr, lo, hi;
+};
+
+// t of the beam with segment j where the pair is a candidate whatever the
+// bound, else +inf.  Pack rows used: ex ey p0x p0y c0p valid eps.
+__device__ __forceinline__ float candidate(const float* __restrict__ pack,
+                                           size_t S, int j, const Beam& b) {
+  const float* p = pack + j;
+  const float ex = __ldg(p), ey = __ldg(p + S);
+  const float p0x = __ldg(p + 2 * S), p0y = __ldg(p + 3 * S);
+  const float c0p = __ldg(p + 4 * S), valid = __ldg(p + 5 * S);
+  const float eps = __ldg(p + 6 * S);
+  const float denom = b.rayx * ey - b.rayy * ex;           // cross(ray, e)
+  const float c1 = (b.rayx * p0y - b.rayy * p0x) - b.c1tr;  // cross(ray, p0-tr)
+  const float c0 = c0p - (b.trx * ey - b.try_ * ex);        // cross(p0-tr, e)
+  const bool ok_denom = fabsf(denom) > eps;
+  const float safe = ok_denom ? denom : 1.0f;
+  const float t = c0 / safe;
+  const float u = -c1 / safe;
+  const bool ok = valid > 0.0f && ok_denom && u >= 0.0f && u <= 1.0f &&
+                  t >= b.lo && t <= b.hi;
+  return ok ? t : INFINITY;
 }
 
-// bound[b] = prev[b * prev_stride] + add
-__global__ void segment_min_level(
-    const float* __restrict__ pack, int S, const int* __restrict__ count,
-    const float* __restrict__ ray, const float* __restrict__ lo,
-    const float* __restrict__ hi, const float* __restrict__ prev,
-    int prev_stride, float add, const float* __restrict__ tr,
-    float* __restrict__ out, int levels, int level, int B) {
-  __shared__ float seg[kRows][kSegs];
-  const int n = min(*count, S);
-  const int j0 = blockIdx.y * kSegs;
-  if (j0 >= n) return;  // uniform over the block
-  const int b = blockIdx.x * kBeams + threadIdx.x;
-  float bound = INFINITY;
-  if (b < B) bound = prev[static_cast<long>(b) * prev_stride] + add;
-  if (!__syncthreads_or(bound < INFINITY)) return;
-
-  const int m = min(kSegs, n - j0);
-  for (int k = threadIdx.x; k < m; k += kBeams) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      seg[r][k] = pack[static_cast<long>(r) * S + j0 + k];
-  }
-  __syncthreads();
-  if (!(bound < INFINITY)) return;
-
-  const float rayx = ray[2 * b], rayy = ray[2 * b + 1];
-  const float trx = tr[0], try_ = tr[1];
-  const float lob = lo[b], hib = hi[b];
-  const float c1tr = rayx * try_ - rayy * trx;  // cross(ray, tr)
+// The lane's earliest candidate t >= bound among the segments lane,
+// lane + kLanes, ... below n, kBatch pairs in flight (their loads start
+// together).  With kStore every candidate, whatever the bound, is appended
+// to `kept` while there is room; `n_kept` counts them all.
+template <bool kStore>
+__device__ __forceinline__ float sweep(const float* __restrict__ pack,
+                                       size_t S, const Beam& beam,
+                                       float bound, int n, int lane,
+                                       float* kept, int* n_kept) {
   float best = INFINITY;
-  for (int k = 0; k < m; ++k) {
-    const float ex = seg[0][k], ey = seg[1][k];
-    const float p0x = seg[2][k], p0y = seg[3][k];
-    const float c0p = seg[4][k], valid = seg[5][k], eps = seg[6][k];
-    const float denom = rayx * ey - rayy * ex;        // cross(ray, e)
-    const float c1 = (rayx * p0y - rayy * p0x) - c1tr;  // cross(ray, p0-tr)
-    const float c0 = c0p - (trx * ey - try_ * ex);      // cross(p0-tr, e)
-    const bool ok_denom = fabsf(denom) > eps;
-    const float safe = ok_denom ? denom : 1.0f;
-    const float t = c0 / safe;
-    const float u = -c1 / safe;
-    if (valid > 0.0f && ok_denom && u >= 0.0f && u <= 1.0f && t >= lob &&
-        t <= hib && t >= bound && t < best)
-      best = t;
+  for (int j0 = lane; j0 < n; j0 += kLanes * kBatch) {
+    float t[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int j = j0 + kLanes * q;
+      // past the end: the last segment again, discarded (no branch around
+      // the loads)
+      const float c = candidate(pack, S, min(j, n - 1), beam);
+      t[q] = j < n ? c : INFINITY;
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      if (kStore && t[q] < INFINITY) {
+        const int slot = atomicAdd(n_kept, 1);
+        if (slot < kCache) kept[slot] = t[q];
+      }
+      if (t[q] >= bound && t[q] < best) best = t[q];
+    }
   }
-  if (best < INFINITY) {
-    if (best == 0.0f) best = 0.0f;  // -0.0 -> +0.0: int order = float order
-    atomicMin(reinterpret_cast<int*>(out) + static_cast<long>(b) * levels +
-                  level,
-              __float_as_int(best));
+  return best;
+}
+
+__global__ void __launch_bounds__(kLanes)
+    segment_min_kernel(const float* __restrict__ pack, int S,
+                       const int* __restrict__ count,
+                       const float* __restrict__ ray,
+                       const float* __restrict__ lo,
+                       const float* __restrict__ hi,
+                       const float* __restrict__ t_after,
+                       const float* __restrict__ tr, float* __restrict__ out,
+                       int levels, float cover) {
+  __shared__ float kept[kCache];
+  __shared__ int n_kept;
+  __shared__ float warp_best[2][kWarps];  // by the level's parity
+  const int lane = threadIdx.x;  // of the beam's kLanes
+  const int b = blockIdx.x;
+  float* o = out + static_cast<size_t>(b) * levels;
+  float bound = t_after[b];
+  const int n = min(*count, S);
+
+  // every branch below is uniform over the block: its threads share the
+  // beam, the count and each level's minimum
+  int k = 0;
+  if (bound < INFINITY && n > 0) {
+    Beam beam;
+    beam.rayx = ray[2 * b];
+    beam.rayy = ray[2 * b + 1];
+    beam.trx = tr[0];
+    beam.try_ = tr[1];
+    beam.c1tr = beam.rayx * beam.try_ - beam.rayy * beam.trx;  // cross(ray, tr)
+    beam.lo = lo[b];
+    beam.hi = hi[b];
+    if (lane == 0) n_kept = 0;
+    __syncthreads();
+    while (k < levels) {
+      // level 0's barrier below stands between the list's writes and reads
+      float best;
+      if (k == 0) {
+        best = sweep<true>(pack, S, beam, bound, n, lane, kept, &n_kept);
+      } else if (n_kept <= kCache) {
+        best = INFINITY;
+        for (int j = lane; j < n_kept; j += kLanes) {
+          const float t = kept[j];
+          if (t >= bound && t < best) best = t;
+        }
+      } else {
+        best = sweep<false>(pack, S, beam, bound, n, lane, kept, &n_kept);
+      }
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1)
+        best = fminf(best, __shfl_xor_sync(kFull, best, d));
+      if ((lane & 31) == 0) warp_best[k & 1][lane >> 5] = best;
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        best = fminf(best, warp_best[k & 1][w]);
+      if (lane == 0) o[k] = best;
+      ++k;
+      if (!(best < INFINITY)) break;  // no later level can find one
+      bound = best + cover;
+    }
   }
+  if (lane == 0)
+    for (; k < levels; ++k) o[k] = INFINITY;
 }
 
 }  // namespace
 
 // pack [8, S] float32; count: one int32 (valid segments, first in the pack);
 // ray [B, 2]; lo, hi, t_after [B]; tr [2] (sensor translation in the pack's
-// frame); out [B, levels] float32.  All on the device, launched on `stream`.
-// Returns the first cudaError_t.
+// frame); out [B, levels] float32.  All on the device, one launch on
+// `stream` for every level.  Returns the first cudaError_t.
 extern "C" int segment_min_f32(const float* pack, int S, const int* count,
                                const float* ray, const float* lo,
                                const float* hi, const float* t_after,
                                const float* tr, float* out, int B,
                                int levels, float cover, void* stream) {
+  if (B <= 0 || levels <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_out = B * levels;
-  fill_inf_kernel<<<(n_out + 255) / 256, 256, 0, st>>>(out, n_out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kBeams - 1) / kBeams, (S + kSegs - 1) / kSegs);
-  for (int k = 0; k < levels; ++k) {
-    const float* prev = k == 0 ? t_after : out + (k - 1);
-    const int stride = k == 0 ? 1 : levels;
-    segment_min_level<<<grid, kBeams, 0, st>>>(
-        pack, S, count, ray, lo, hi, prev, stride, k == 0 ? 0.0f : cover, tr,
-        out, levels, k, B);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  segment_min_kernel<<<B, kLanes, 0, st>>>(pack, S, count, ray, lo, hi,
+                                           t_after, tr, out, levels, cover);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -196,7 +196,8 @@ __global__ void window_replay_kernel(Field g, const float* __restrict__ k,
 }
 
 // Rounds 2..ROUNDS on the per-beam state S [N, 8], in place; one block.
-// lev [N, n_rounds]: round r's candidate per beam (inf = none).
+// lev [N, n_rounds] with `lev_stride` floats between beams: round r's
+// candidate per beam (inf = none).
 __global__ void __launch_bounds__(kRoundsThreads)
     window_rounds_kernel(Field g, float* __restrict__ S,
                          const float* __restrict__ lev,
@@ -204,7 +205,8 @@ __global__ void __launch_bounds__(kRoundsThreads)
                          const float* __restrict__ idx_min,
                          const float* __restrict__ idx_max,
                          const float* __restrict__ tr, int N, int n_rounds,
-                         int cap, long long* __restrict__ dropped_out) {
+                         int lev_stride, int cap,
+                         long long* __restrict__ dropped_out) {
   extern __shared__ int listed[];          // [cap]: the beams to replay
   __shared__ int warp_count[kRoundsThreads / 32];
   const int tid = threadIdx.x;
@@ -219,7 +221,7 @@ __global__ void __launch_bounds__(kRoundsThreads)
       const int b = b0 + tid;
       bool need = false;
       if (b < N) {
-        need = isfinite(lev[static_cast<long>(b) * n_rounds + r]) &&
+        need = isfinite(lev[static_cast<long>(b) * lev_stride + r]) &&
                !(S[static_cast<long>(b) * 8 + 1] > 0.0f);
         // a beam that does not need the round is resolved from here on
         if (!need)
@@ -250,7 +252,7 @@ __global__ void __launch_bounds__(kRoundsThreads)
       const bool act = e < n_listed;
       const int b = act ? listed[e] : 0;
       const Column col = replay_column(
-          g, act, lev[static_cast<long>(b) * n_rounds + r], idx_min[b],
+          g, act, lev[static_cast<long>(b) * lev_stride + r], idx_min[b],
           idx_max[b], ray[2 * b], ray[2 * b + 1], sensor_origin(tr, b), j);
       if (act && col.any_ev) S[static_cast<long>(b) * 8 + j] = col.value;
     }
@@ -281,7 +283,9 @@ extern "C" int window_replay_f32(const float* tsd, int H, int W, float s,
 }
 
 // Rounds 2..ROUNDS.  S [N, 8] float32, updated in place; lev [N, n_rounds]
-// float32; ray, idx_min, idx_max, tr as above; cap replays a round at most
+// float32, a beam's rounds adjacent and `lev_stride` floats from one beam to
+// the next (the later columns of the candidate sweep's levels are taken as
+// they lie); ray, idx_min, idx_max, tr as above; cap replays a round at most
 // (cap * 4 bytes of shared memory, at most 48 KB); dropped_out one int64:
 // the needing beams beyond cap, summed over the rounds.  Returns the
 // cudaError_t of the launch.
@@ -289,11 +293,13 @@ extern "C" int window_rounds_f32(const float* tsd, int H, int W, float s,
                                  float* S, const float* lev,
                                  const float* ray, const float* idx_min,
                                  const float* idx_max, const float* tr,
-                                 int N, int n_rounds, int cap,
-                                 long long* dropped_out, void* stream) {
+                                 int N, int n_rounds, int lev_stride,
+                                 int cap, long long* dropped_out,
+                                 void* stream) {
   const Field g{tsd, H, W, s};
   window_rounds_kernel<<<1, kRoundsThreads, cap * sizeof(int),
                          static_cast<cudaStream_t>(stream)>>>(
-      g, S, lev, ray, idx_min, idx_max, tr, N, n_rounds, cap, dropped_out);
+      g, S, lev, ray, idx_min, idx_max, tr, N, n_rounds, lev_stride, cap,
+      dropped_out);
   return static_cast<int>(cudaGetLastError());
 }

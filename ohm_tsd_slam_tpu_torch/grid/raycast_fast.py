@@ -22,9 +22,9 @@ The caster is the JAX package's TPU path with the five CUDA kernels of
 ops/ (segment layers, row pack, segment min, window replay with its rounds
 entry point, and the channel compaction behind the extraction of grids
 narrower than the fused kernels take) in place of its Pallas kernels, and
-it reads nothing back to the host: rounds 2..ROUNDS always run, cheaply (a
-resolved beam carries t_after = +inf through the candidate sweep, and one
-launch replays at most UNRESOLVED_CAP beams a round).  Each kernel's plain
+it reads nothing back to the host: rounds 2..ROUNDS always run, cheaply
+(one candidate sweep a scan gives every beam its ROUNDS candidates, and one
+launch replays at most UNRESOLVED_CAP unresolved beams a round).  Each kernel's plain
 twin lives here (`segment_layers_plain`, `pack_rows_plain`,
 `segment_min_plain`, `window_replay_plain`, `window_rounds_plain`) or in
 grid/compact.py (`pack_channels_rows`).  A
@@ -557,17 +557,26 @@ def window_rounds_plain(grid: TsdGrid, S: torch.Tensor, lev: torch.Tensor,
 
 def _core(grid, segments, ray, tr, idx_min, idx_max, feasible, n_dropped,
           ks: CasterKernels):
-    """The JAX package's TPU path on the kernels: candidate sweep C at
-    K=1, window replay D for every beam, the K=ROUNDS-1 sweep for the
-    unresolved beams, and D's rounds entry point for the ROUNDS-1 later
-    replays.  Nothing is read back to the host."""
+    """The JAX package's TPU path on the kernels: one candidate sweep C
+    of ROUNDS levels from the march's start, window replay D for every
+    beam around level 0, and D's rounds entry point for the ROUNDS-1 later
+    replays around the later levels.  Nothing is read back to the host.
+
+    The JAX package sweeps twice (K=1 for every beam, K=ROUNDS-1 from
+    `max(lo, t_1 + COVER)` for the beams round 1 left unresolved), because
+    on the TPU the later levels cost a second pass over all beams.  A beam
+    that is unresolved has a candidate t_1 >= lo, so its second sweep
+    starts at t_1 + COVER: its levels are levels 1.. of one sweep with
+    `cover=COVER`.  The rounds never read the levels of a resolved beam
+    (window_rounds_plain's `need`)."""
     N = ray.shape[0]
     lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
     hi = torch.ceil(idx_max) + 1.0
     tr_pack = tr - segments.origin
 
-    t_1 = ks.segment_min(segments.pack, segments.count, ray, lo, hi, lo,
-                         tr_pack)[:, 0]
+    lev = ks.segment_min(segments.pack, segments.count, ray, lo, hi, lo,
+                         tr_pack, levels=ROUNDS, cover=COVER)
+    t_1 = lev[:, 0]
     has = torch.isfinite(t_1) & feasible
     k_1 = torch.where(has, t_1, 0.0)
 
@@ -577,13 +586,8 @@ def _core(grid, segments, ray, tr, idx_min, idx_max, feasible, n_dropped,
     resolved = (S[:, 1] > 0.0) | ~has
     S[:, 1] = resolved.to(S.dtype)
     if ROUNDS > 1:
-        t_after = torch.where(resolved, math.inf,
-                              torch.maximum(lo, k_1 + COVER))
-        lev = ks.segment_min(segments.pack, segments.count, ray, lo, hi,
-                             t_after, tr_pack, levels=ROUNDS - 1,
-                             cover=COVER)
-        S, dropped = ks.window_rounds(grid, S, lev, ray, idx_min, idx_max,
-                                      tr, unresolved_cap(N))
+        S, dropped = ks.window_rounds(grid, S, lev[:, 1:], ray, idx_min,
+                                      idx_max, tr, unresolved_cap(N))
         n_dropped = n_dropped + dropped
 
     hit = S[:, 0] > 0.0

@@ -20,6 +20,7 @@ import torch
 
 from ohm_tsd_slam_tpu_torch.grid.compact import pack_channels_rows
 from ohm_tsd_slam_tpu_torch.ops import _build
+from ohm_tsd_slam_tpu_torch.ops.pack_rows_cuda import status_words
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,20 +73,22 @@ def compact_channels(mask: torch.Tensor, channels: Sequence[torch.Tensor],
     packed = torch.empty((len(channels) + 1, cap), dtype=torch.float32,
                          device=dev)
     row_cnt = torch.empty(n // ROW, dtype=torch.int32, device=dev)
-    row_off = torch.empty_like(row_cnt)
+    status = torch.empty(status_words(n // ROW), dtype=torch.int64,
+                         device=dev)
     total = torch.empty(1, dtype=torch.int32, device=dev)
-    launch(mask, channels, packed, row_cnt, row_off, total)
+    launch(mask, channels, packed, row_cnt, status, total)
     return packed, total[0]
 
 
 def launch(mask: torch.Tensor, channels: Sequence[torch.Tensor],
            packed: torch.Tensor, row_cnt: torch.Tensor,
-           row_off: torch.Tensor, total: torch.Tensor) -> None:
+           status: torch.Tensor, total: torch.Tensor) -> None:
     """Launch the kernel on the current stream, on buffers the caller
     holds (compact_channels checks the inputs and allocates them): fills
-    `packed` [len(channels) + 1, cap] and `total` [1]; `row_cnt` and
-    `row_off` are int32 scratch of n / 128.  Raises if the launch is
-    refused; counts it in compact_channels.launches."""
+    `packed` [len(channels) + 1, cap] and `total` [1]; `row_cnt` is int32
+    scratch of n / 128, `status` int64 scratch of status_words(n / 128)
+    (the kernel zeroes it).  Raises if the launch is refused; counts it in
+    compact_channels.launches."""
     dev = mask.device
     ptrs = (_P * len(channels))(*[c.data_ptr() for c in channels])
     lib = _lib()
@@ -93,7 +96,7 @@ def launch(mask: torch.Tensor, channels: Sequence[torch.Tensor],
         err = lib.compact_channels_f32(
             mask.data_ptr(), int(mask.dtype == torch.float32), ptrs,
             len(channels), mask.numel(), row_cnt.data_ptr(),
-            row_off.data_ptr(), packed.data_ptr(), total.data_ptr(),
+            status.data_ptr(), packed.data_ptr(), total.data_ptr(),
             packed.shape[1], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -5,7 +5,8 @@ Replaces the TPU kernel
 ohm_tsd_slam_tpu/ops/raycast_pallas.py::segment_min_pallas.  The plain
 version is grid/raycast_fast.py::segment_min_plain; the wrapper runs it for
 tensors on the CPU.  For tensors on CUDA it launches the kernel or raises;
-`segment_min.launches` counts the launches (one per call, all levels).
+`segment_min.launches` counts the launches: one kernel launch a call,
+whatever the number of levels.
 """
 
 from __future__ import annotations
@@ -59,20 +60,31 @@ def segment_min(pack: torch.Tensor, count: torch.Tensor, ray: torch.Tensor,
         raise TypeError("segment_min: count must be one int32 on the card")
     if levels < 1:
         raise ValueError(f"segment_min: levels must be >= 1, got {levels}")
-    count = count.contiguous()
     out = torch.empty((B, levels), dtype=torch.float32, device=dev)
+    launch(flat["pack"], count.contiguous(), flat["ray"], flat["lo"],
+           flat["hi"], flat["t_after"], flat["tr"], out, cover)
+    return out
+
+
+def launch(pack: torch.Tensor, count: torch.Tensor, ray: torch.Tensor,
+           lo: torch.Tensor, hi: torch.Tensor, t_after: torch.Tensor,
+           tr: torch.Tensor, out: torch.Tensor, cover: float) -> None:
+    """Launch the kernel on the current stream, on buffers the caller
+    holds (segment_min checks the inputs and allocates the result): fills
+    `out` [B, levels].  Raises if the launch is refused; counts it in
+    segment_min.launches."""
+    dev = pack.device
+    B, levels = out.shape
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.segment_min_f32(
-            flat["pack"].data_ptr(), pack.shape[1], count.data_ptr(),
-            flat["ray"].data_ptr(), flat["lo"].data_ptr(),
-            flat["hi"].data_ptr(), flat["t_after"].data_ptr(),
-            flat["tr"].data_ptr(), out.data_ptr(), B, levels, float(cover),
-            torch.cuda.current_stream(dev).cuda_stream)
+            pack.data_ptr(), pack.shape[1], count.data_ptr(),
+            ray.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            t_after.data_ptr(), tr.data_ptr(), out.data_ptr(), B, levels,
+            float(cover), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_min_f32 launch failed: cudaError {err}")
     segment_min.launches += 1
-    return out
 
 
 segment_min.launches = 0

@@ -41,7 +41,7 @@ def _lib() -> ctypes.CDLL:
                                           _P, _P, _P, _I, _P]
         lib.window_replay_f32.restype = _I
         lib.window_rounds_f32.argtypes = [_P, _I, _I, _F, _P, _P, _P, _P,
-                                          _P, _P, _I, _I, _I, _P, _P]
+                                          _P, _P, _I, _I, _I, _I, _P, _P]
         lib.window_rounds_f32.restype = _I
     return lib
 
@@ -111,7 +111,8 @@ def window_rounds(grid: TsdGrid, S: torch.Tensor, lev: torch.Tensor,
                   idx_max: torch.Tensor, tr: torch.Tensor, cap: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rounds 2..ROUNDS of the caster on the per-beam state S [N, 8] with
-    the candidate levels lev [N, ROUNDS-1] (see window_rounds_plain).
+    the candidate levels lev [N, ROUNDS-1] (see window_rounds_plain; the
+    later columns of a wider tensor are taken as they lie, without a copy).
     Returns (S after the rounds, the int64 count of beams that needed a
     round beyond its `cap` replays).  On the card S is updated in place and
     returned; use the result, not the argument."""
@@ -123,8 +124,14 @@ def window_rounds(grid: TsdGrid, S: torch.Tensor, lev: torch.Tensor,
     H, W = tsd.shape
     N, n_rounds = lev.shape
     f = _flat("window_rounds", dev, (
-        ("S", S, 8 * N), ("lev", lev, N * n_rounds), ("ray", ray, 2 * N),
-        ("idx_min", idx_min, N), ("idx_max", idx_max, N), ("tr", tr, 2)))
+        ("S", S, 8 * N), ("ray", ray, 2 * N), ("idx_min", idx_min, N),
+        ("idx_max", idx_max, N), ("tr", tr, 2)))
+    if lev.device != dev or lev.dtype != torch.float32 or lev.dim() != 2:
+        raise TypeError(f"window_rounds: lev must be float32 [N, rounds] on "
+                        f"{dev}, got {lev.dtype} {tuple(lev.shape)} on "
+                        f"{lev.device}")
+    if lev.stride(1) != 1:
+        lev = lev.contiguous()
     if not S.is_contiguous():
         raise ValueError("window_rounds: S is updated in place and must be "
                          "contiguous")
@@ -137,9 +144,10 @@ def window_rounds(grid: TsdGrid, S: torch.Tensor, lev: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.window_rounds_f32(
             tsd.data_ptr(), H, W, grid.cell_size, S.data_ptr(),
-            f["lev"].data_ptr(), f["ray"].data_ptr(),
+            lev.data_ptr(), f["ray"].data_ptr(),
             f["idx_min"].data_ptr(), f["idx_max"].data_ptr(),
-            f["tr"].data_ptr(), N, n_rounds, cap, dropped.data_ptr(),
+            f["tr"].data_ptr(), N, n_rounds, lev.stride(0), cap,
+            dropped.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(

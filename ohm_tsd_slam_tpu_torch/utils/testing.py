@@ -118,6 +118,18 @@ def noise_field(cells: int, seed: int = 0,
     return f
 
 
+def fence_segments(n: int, x0: float, y0: float, pitch: float = 0.001,
+                   half: float = 2.0):
+    """Endpoints p0, p1 [n, 2] of `n` parallel segments of length 2 * half
+    across the x axis, `pitch` apart from (x0, y0) on: a beam from just
+    before them along +x crosses every one, far more candidates than the
+    candidate sweep keeps for a beam, and a slanted beam crosses some."""
+    x = x0 + pitch * np.arange(n)
+    p0 = np.stack([x, np.full(n, y0 - half)], axis=1)
+    p1 = np.stack([x, np.full(n, y0 + half)], axis=1)
+    return p0, p1
+
+
 def field_arrays(tsd: np.ndarray, cell_size: float, tile_dim: int = 32,
                  max_truncation: float = 0.1, max_weight: float = 300.0):
     """A grid state dict (grid/state.py::from_arrays) holding `tsd`, with

@@ -33,6 +33,7 @@ from ohm_tsd_slam_tpu_torch.grid.state import create, from_arrays
 from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck
 from ohm_tsd_slam_tpu_torch.sensor import polar2d
 from ohm_tsd_slam_tpu_torch.utils.testing import (
+    fence_segments,
     field_arrays,
     noise_field,
     rect_walls,
@@ -111,7 +112,7 @@ def test_cpu_check_runs_the_twins(cfg, extraction):
                    *extraction}
     for name, st in check.stats.items():
         assert st["max_abs_err"] == 0.0, (name, st)
-    assert check.stats["segment_min"]["calls"] == 2          # K=1, K=3
+    assert check.stats["segment_min"]["calls"] == 1          # K=ROUNDS
     assert check.stats["window_replay"]["calls"] == 1        # round 1
     assert check.stats["window_rounds"]["calls"] == 1        # rounds 2..4
     assert int(res.n_dropped) == 0 and res.mask.sum() > 300
@@ -225,6 +226,178 @@ def test_kernels_count_an_overflow(cuda_device):
     torch.cuda.synchronize()
     assert int(seg.n_dropped) > 0 and int(res.n_dropped) > 0
     assert check.stats["pack_rows"]["max_abs_err"] == 0.0
+
+
+def _sweep_inputs(grid, n_beams=1081):
+    """Kernel C's arguments as the caster gives them, for `n_beams` beams
+    from POSES[0]: (pack, count, ray, lo, hi, t_after, tr_pack)."""
+    geom = polar2d.SensorPolar2D(
+        size=n_beams, angular_res=math.radians(270.0) / n_beams,
+        phi_min=math.radians(-135.0), max_range=8.0, min_range=0.01)
+    seg = rf.extract_segments(grid)
+    pose = se2.make(*POSES[0], device=grid.tsd.device)
+    ray, tr, idx_min, idx_max, _ = rf.beam_geometry(grid, geom, pose)
+    lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
+    hi = torch.ceil(idx_max) + 1.0
+    return (seg.pack, seg.count, ray, lo, hi, lo,
+            (tr - seg.origin).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 3, 4])
+@pytest.mark.parametrize("case", ["room", "full_pack", "no_segments",
+                                  "all_resolved", "fence"])
+def test_segment_min_kernel_matches_twin(cuda_device, case, levels):
+    """Kernel C, one launch for every level, against its twin in every
+    value: a room; the noise field's full pack (32768 segments); a count
+    of 0; every beam resolved (t_after = +inf); a fence of 4096 segments
+    that the forward beams cross one and all (more candidates than a beam
+    keeps in shared memory, so its later levels compute every pair anew)
+    and the slanted beams in part."""
+    from ohm_tsd_slam_tpu_torch.ops.segment_min_cuda import segment_min
+
+    grid = (_field("noise", cuda_device) if case == "full_pack"
+            else _room(cuda_device))
+    pack, count, ray, lo, hi, t_after, tr = _sweep_inputs(grid)
+    if case == "fence":
+        x, y = (float(v) for v in tr)
+        p0, p1 = (torch.as_tensor(p, dtype=torch.float32, device=cuda_device)
+                  for p in fence_segments(4096, x + 0.5, y))
+        pack, count = rf.pack_segments(
+            p0, p1, torch.ones(4096, dtype=torch.bool, device=cuda_device))
+    if case == "full_pack":
+        assert int(count) == rf.MAX_SEGMENTS
+    elif case == "no_segments":
+        count = torch.zeros_like(count)
+    elif case == "all_resolved":
+        t_after = torch.full_like(lo, math.inf)
+    args = (pack, count, ray, lo, hi, t_after, tr, levels, rf.COVER)
+    before = segment_min.launches
+    got = segment_min(*args)
+    torch.cuda.synchronize()
+    assert segment_min.launches == before + 1
+    want = rf.segment_min_plain(*args)
+    assert got.shape == want.shape == (ray.shape[0], levels)
+    assert torch.equal(got, want)                 # max_abs_err 0
+    if case in ("room", "full_pack", "fence"):
+        assert int(torch.isfinite(got[:, 0]).sum()) > 300
+    else:
+        assert not torch.isfinite(got).any()
+    with pytest.raises(TypeError, match="float32"):
+        segment_min(pack.double(), *args[1:])
+
+
+def test_fence_overflows_a_beams_candidates():
+    """The premise of the fence case above, from the twin on the CPU: the
+    forward beams find a candidate in every level, spaced by COVER, among
+    4096 crossings, and the slanted ones cross a part or none."""
+    pack, count, ray, lo, hi, t_after, tr = _sweep_inputs(
+        _room(torch.device("cpu")), n_beams=91)
+    p0, p1 = (torch.as_tensor(p, dtype=ray.dtype)
+              for p in fence_segments(4096, float(tr[0]) + 0.5, float(tr[1])))
+    pack, count = rf.pack_segments(p0, p1, torch.ones(4096, dtype=torch.bool))
+    assert int(count) == 4096
+    # a beam crosses the fence where a sweep from the start finds a candidate
+    crossed = torch.isfinite(rf.segment_min_plain(
+        pack, count, ray, lo, hi, t_after, tr, 1, 0.0))[:, 0]
+    ex, p0x = pack[0:1], pack[2:3]
+    t_far = rf.segment_min_plain(pack, count, ray, lo, hi,
+                                 torch.full_like(lo, 1e9), tr)
+    assert not torch.isfinite(t_far).any()
+    lev = rf.segment_min_plain(pack, count, ray, lo, hi, t_after, tr,
+                               rf.ROUNDS, rf.COVER)
+    full = torch.isfinite(lev).all(1)
+    assert 10 < int(full.sum()) < 91 and int((~crossed).sum()) > 10
+    assert bool((lev[full].diff(dim=1) >= rf.COVER).all())
+    assert ex.abs().max() == 0.0 and float(p0x.max() - p0x.min()) > 4.0
+
+
+def test_pack_rows_launch_rejects_an_odd_capacity():
+    """The status words lie behind the pack on 8 bytes: `launch` names the
+    constraint before it reaches the kernel (the wrapper's capacities,
+    multiples of 128, always meet it)."""
+    from ohm_tsd_slam_tpu_torch.ops import pack_rows_cuda
+
+    grid = _room(torch.device("cpu"))
+    buf = torch.empty((7, 129))
+    with pytest.raises(ValueError, match="even capacity"):
+        pack_rows_cuda.launch(grid, None, None, buf, None)
+    assert pack_rows_cuda.empty_pack("cpu", 2048, 256).shape[1] % 2 == 0
+
+
+def _layers(grid):
+    from ohm_tsd_slam_tpu_torch.ops.segment_layers_cuda import segment_layers
+
+    return segment_layers(grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells,field,size", [
+    (1024, "room", 32768), (2048, "room", 32768), (2048, "noise", 32768),
+    (1024, "noise", 4096), (1024, "empty", 32768), (256, "room", 128)],
+    ids=["1024", "2048", "2048_overflow", "1024_overflow", "empty",
+         "small_pack_large_scratch"])
+def test_pack_rows_kernel_matches_twin(cuda_device, cells, field, size):
+    """Kernel B (the prefix by look-back inside the pack kernel) against
+    its twin bit for bit: at 128 tiles, at 512 tiles (more than are
+    resident at once), on fields whose segments overflow the pack (the
+    counts equal), on an empty field, and with a pack smaller than the
+    prefix's scratch; 200 launches on one input give the same bits."""
+    from ohm_tsd_slam_tpu_torch.ops.pack_rows_cuda import pack_rows
+
+    rng = np.random.default_rng(11)
+    if field == "noise":
+        f = noise_field(cells, seed=5)
+    elif field == "empty":
+        f = np.full((cells, cells), np.nan)
+    else:
+        # walls and scattered blobs: segments all over the row axis
+        f = sliver_field(cells, cells // 3, cells // 2)
+        for _ in range(40):
+            y, x = rng.integers(8, cells - 8, 2)
+            f[y - 2:y + 3, x - 2:x + 3] = -0.2
+    grid = from_arrays(field_arrays(f.astype(np.float32), 0.025),
+                       device=cuda_device)
+    mask, row_cnt = _layers(grid)
+    want, want_total = rf.pack_rows_plain(grid, mask, size)
+    before = pack_rows.launches
+    got, total = pack_rows(grid, mask, row_cnt, size)
+    torch.cuda.synchronize()
+    assert pack_rows.launches == before + 1
+    assert int(total) == int(want_total) == int(mask.sum())
+    assert got.shape == want.shape == (5, size + 128)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if field == "empty":
+        assert int(total) == 0
+    elif "noise" in field or size == 128:
+        assert int(total) > size + 128               # dropped, and counted
+    else:
+        assert 100 < int(total) <= size
+    for _ in range(200):
+        again, again_total = pack_rows(grid, mask, row_cnt, size)
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+        assert int(again_total) == int(total)
+
+
+@pytest.mark.cuda
+def test_compact_channels_kernel_at_many_tiles(cuda_device):
+    """Kernel E with the shared prefix at 4 Mi lanes (128 tiles) and 16 Mi
+    lanes (512 tiles), 200 launches each: every bit equal to the twin."""
+    from ohm_tsd_slam_tpu_torch.grid.compact import pack_channels_rows
+    from ohm_tsd_slam_tpu_torch.ops.compact_channels_cuda import (
+        compact_channels,
+    )
+
+    rng = np.random.default_rng(12)
+    for n in (1 << 22, 1 << 24):
+        m = torch.from_numpy(rng.random(n) < 0.001).to(cuda_device)
+        cs = tuple(torch.from_numpy(rng.normal(size=n).astype(np.float32))
+                   .to(cuda_device) for _ in range(2))
+        want, wcnt = pack_channels_rows(m, cs, 32768)
+        for _ in range(200):
+            got, cnt = compact_channels(m, cs, 32768)
+            assert int(cnt) == int(wcnt)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
