@@ -51,11 +51,23 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       configs/single-laser.yaml's settings (match_tsd seed, then ICP), 60
       scans, twice from one seed (the pose traces must be equal bit for
       bit), then publish_map; then 10 scans each in the modes EXP and PDF;
+   d. the same settings in mode GN (30 scans straight ahead; the push is
+      its only kernel: no render, no extraction), in mode AMCL (20 scans
+      and a 0.35 m / 0.35 m kidnap it must recover from within 3 cells,
+      twice from one seed: equal traces) and in ICP mode with the
+      odometry rescue (20 scans, odometry through SlamNode.on_odometry,
+      one scan 0.35 m off the path that the rescue, and only it, must
+      replace); then render_ranges on the ICP path's grid (launches with
+      and without a segment cache, the unrefined forward equal to
+      raycast_checked's ranges, pose and cell gradients against the CPU
+      port within RENDER_TOL), and match_twinpoint and icp_multi_init on
+      the TSD path's scene against the CPU port within TWIN_TOL;
 5. times: first a check that extract_segments, localize_step (in every
-   ported mode) and the push wrapper make no host sync, then medians and
+   mode) and the push wrapper make no host sync, then medians and
    quartiles of 25 runs after a warm-up, each printed beside the card's
    name and power limit, and the peak device memory of the caster's stages
-   and of each matcher.
+   and of each matcher; the modes GN and AMCL, the render's forward and
+   backward, TwinPoint and multi-init are timed too.
 
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound on this card (the larger of the bytes the function
@@ -91,7 +103,16 @@ SCANS_PER_ROBOT = 30         # the ICP-mode path (two robots)
 SCANS_TSD = 60               # the TSD-mode path (one robot)
 SCANS_OTHER = 10             # EXP and PDF, from the TSD run's start
 SCANS_NARROW = 15            # the general-extraction path
+SCANS_GN = 30                # mode GN (one robot)
+SCANS_AMCL = 20              # mode AMCL, then the kidnap scan
+SCANS_ODOM = 20              # the ICP path with the odometry rescue
 N_TIMED = 25
+# render gradients, card against the CPU port (float32), as a share of the
+# largest magnitude; TwinPoint and multi-init transforms, card against CPU
+RENDER_TOL = 1e-3
+HIT_FLIPS = 0.005            # share of beams whose hit may differ card/CPU
+TWIN_TOL = 1e-4
+TWIN_TRIALS = 10             # TwinPoint trials held against the CPU port
 
 # published peaks of one H100 SXM (NVIDIA's data sheet): the rates the
 # kernels' bounds are taken against
@@ -202,15 +223,15 @@ def scan_ranges(xyt, max_range, scene=world):
                          segments=segs, circles=circles)
 
 
-def trajectory(start, n):
-    """~2 cm and 0.5 deg per scan (tests/test_slam_e2e.py's motion)."""
+def trajectory(start, n, turn_deg=0.5):
+    """~2 cm and `turn_deg` per scan (tests/test_slam_e2e.py's motion)."""
     x, y, th = start
     out = []
     for _ in range(n):
         out.append((x, y, th))
         x += 0.02 * math.cos(th)
         y += 0.02 * math.sin(th)
-        th += math.radians(0.5)
+        th += math.radians(turn_deg)
     return out
 
 
@@ -926,59 +947,81 @@ def narrow_path(dev, label: str, total: dict, push_check):
     return node, launches
 
 
+def run_node(dev, label: str, push_check, flat: dict, gts, scans,
+             seed: int = 0, name: str = None):
+    """One robot's scans through SlamNode.process_scan on the card with
+    the settings `flat`, the launch counts set to 0 just before and read
+    just after, the mapper pushing through `push_check`.  Returns the node
+    (pushing through push_cuda again, as its users run it) and the run."""
+    from ohm_tsd_slam_tpu_torch.config import RegMode, from_flat_params
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode
+
+    c = from_flat_params(flat)
+    node = SlamNode(c, dtype=torch.float32, device=dev, seed=seed)
+    kernel_push = node.mapper._push_fn
+    node.mapper._push_fn = push_check
+    pushes_before = push_check.stats["calls"]
+    plain_on_cuda = []
+    saved = watch_plain(plain_on_cuda)
+    reset_counts()
+    t0 = time.perf_counter()
+    run = drive(node, c, gts, scans)
+    torch.cuda.synchronize()
+    run["wall"] = time.perf_counter() - t0
+    run["launches"] = read_counts()
+    run["pushes"] = push_check.stats["calls"] - pushes_before
+    node.mapper._push_fn = kernel_push
+    for mod, attr, orig in saved:
+        setattr(mod, attr, orig)
+    loc = node.localizers[0]
+    assert loc.params.mode == int(flat["registration_mode"])
+    assert loc.scan_count == run["n_scans"] == len(gts[0]) - 1
+    assert not plain_on_cuda, plain_on_cuda
+    limit = 2.5 * c.grid.cellsize
+    err = max(run["errs"][0])
+    print(f"{name or RegMode(loc.params.mode).name} path: {run['n_scans']} "
+          f"localized scans, {run['updates']} grid versions, max |pose - "
+          f"truth| = {err:.6f} m, final {run['errs'][0][-1]:.6f} m (limit "
+          f"{limit} m), rays_dropped 0 on each; kernel launches "
+          f"{json.dumps(run['launches'])}; {run['wall']:.3f} s [{label}]")
+    assert err < limit, (flat["registration_mode"], err)
+    la = run["launches"]
+    assert la["push"] == run["pushes"] >= run["updates"] > 2, la
+    assert la["compact_channels"] == 0, la       # a 1024-wide grid
+    return node, run
+
+
+def assert_rendering_launches(run) -> None:
+    """A and B once per grid version, C and D's two entry points once per
+    scan (rays_dropped 0: no scan re-rendered with the exact march)."""
+    la = run["launches"]
+    assert la["segment_layers"] == la["pack_rows"] >= run["updates"], la
+    assert la["segment_min"] == run["n_scans"], la
+    assert la["window_replay"] == la["window_rounds"] == run["n_scans"], la
+
+
 def ransac_paths(dev, label: str, push_check):
     """The RANSAC pre-registration paths at full width: TSD mode with
     configs/single-laser.yaml's settings (1024^2 cells, 1081 beams, 100
     trials, the yaml's control set), twice from one seed; then EXP and PDF
     from the same start."""
     from ohm_tsd_slam_tpu_torch.config import RegMode, from_flat_params
-    from ohm_tsd_slam_tpu_torch.slam import SlamNode
 
     cfg = from_flat_params(SINGLE_LASER)
     half = cfg.grid.size_meters * 0.5
     gts = [trajectory((half, half, 0.0), SCANS_TSD)]
     scans = [[scan_ranges(p, 30.0) for p in gts[0]]]
-    limit = 2.5 * cfg.grid.cellsize
 
     def run_mode(mode, n, seed=0):
         flat = {**SINGLE_LASER, "registration_mode": int(mode)}
-        c = from_flat_params(flat)
-        node = SlamNode(c, dtype=torch.float32, device=dev, seed=seed)
-        kernel_push = node.mapper._push_fn
-        node.mapper._push_fn = push_check
-        pushes_before = push_check.stats["calls"]
-        plain_on_cuda = []
-        saved = watch_plain(plain_on_cuda)
-        reset_counts()
-        t0 = time.perf_counter()
-        run = drive(node, c, [gts[0][:n]], [scans[0][:n]])
-        torch.cuda.synchronize()
-        run["wall"] = time.perf_counter() - t0
-        run["launches"] = read_counts()
-        n_pushes = push_check.stats["calls"] - pushes_before
-        node.mapper._push_fn = kernel_push    # the node as its users run it
-        for mod, attr, orig in saved:
-            setattr(mod, attr, orig)
+        node, run = run_node(dev, label, push_check, flat, [gts[0][:n]],
+                             [scans[0][:n]], seed)
         loc = node.localizers[0]
-        assert loc.params.mode == int(mode) and loc.params.fast_raycast
+        assert loc.params.fast_raycast
         assert loc.params.ransac.trials == SINGLE_LASER["trials"]
         assert (loc.params.ransac.size_control_set
                 == SINGLE_LASER["sizeControlSet"])
-        assert loc.scan_count == run["n_scans"] == n - 1
-        assert not plain_on_cuda, plain_on_cuda
-        err = max(run["errs"][0])
-        print(f"{RegMode(mode).name} path: {run['n_scans']} localized "
-              f"scans, {run['updates']} grid versions, max |pose - truth| = "
-              f"{err:.6f} m, final {run['errs'][0][-1]:.6f} m (limit {limit} "
-              f"m), rays_dropped 0 on each; kernel launches "
-              f"{json.dumps(run['launches'])}; {run['wall']:.3f} s "
-              f"[{label}]")
-        assert err < limit, (mode, err)
-        la = run["launches"]
-        assert la["segment_layers"] == la["pack_rows"] >= run["updates"], la
-        assert la["segment_min"] == run["n_scans"], la
-        assert la["window_replay"] == la["window_rounds"] == run["n_scans"]
-        assert la["push"] == n_pushes >= run["updates"] > 2, la
+        assert_rendering_launches(run)
         return node, run
 
     node, run = run_mode(RegMode.TSD, SCANS_TSD)
@@ -1001,6 +1044,309 @@ def ransac_paths(dev, label: str, push_check):
     for mode in (RegMode.EXP, RegMode.PDF):
         run_mode(mode, SCANS_OTHER + 1)
     return node, run["launches"]
+
+
+def gn_path(dev, label: str, push_check):
+    """Mode GN at full width: configs/single-laser.yaml's settings with
+    registration_mode 4 (GnParams(): 30 iterations).  Gauss-Newton aligns
+    the scan to the field and renders no model scan, and the node extracts
+    no segments for it: the push is the path's only kernel.  The robot
+    drives straight (2 cm a scan): GN's basin is the truncation band (3
+    cells, 7.5 cm), and on the other paths' turning trajectory (0.5 deg a
+    scan) GN loses track from scan 13 on in both packages
+    (tools/gn_trajectory.py)."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+
+    half = from_flat_params(SINGLE_LASER).grid.size_meters * 0.5
+    gts = [trajectory((half, half, 0.0), SCANS_GN, turn_deg=0.0)]
+    scans = [[scan_ranges(p, 30.0) for p in gts[0]]]
+    node, run = run_node(dev, label, push_check,
+                         {**SINGLE_LASER, "registration_mode": 4}, gts, scans)
+    assert node.localizers[0].params.gn.iterations == 30
+    assert node._segments is None
+    la = run["launches"]
+    for name in ("segment_layers", "pack_rows", "segment_min",
+                 "window_replay", "window_rounds", "compact_channels"):
+        assert la[name] == 0, la
+    return node, run
+
+
+AMCL = {**SINGLE_LASER, "registration_mode": 5, "amcl_particles": 512,
+        "amcl_iterations": 8,
+        # tests/test_slam_e2e.py::test_slam_amcl_recovers_kidnap's
+        # proposal and gates: a 0.49 m correction must pass the gate
+        "amcl_sigma_trans": 0.3, "amcl_sigma_rot": 0.1,
+        "reg_trs_max": 1.0, "reg_sin_rot_max": 0.9}
+KIDNAP = (0.35, 0.35)
+
+
+def amcl_path(dev, label: str, push_check):
+    """Mode AMCL at full width (512 particles, 8 iterations, 140 control
+    points), SCANS_AMCL scans, then a scan taken KIDNAP away from the last
+    pose while the estimate stays (tests/test_slam_e2e.py:260-290): the
+    node must relocalize within 3 cells.  Twice from one seed: the traces
+    must be equal bit for bit."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+
+    cfg = from_flat_params(AMCL)
+    half = cfg.grid.size_meters * 0.5
+    gts = [trajectory((half, half, 0.0), SCANS_AMCL)]
+    scans = [[scan_ranges(p, 30.0) for p in gts[0]]]
+    x, y, th = gts[0][-1]
+    kid = (x + KIDNAP[0], y + KIDNAP[1], th)
+    kid_scan = scan_msg(scan_ranges(kid, 30.0), 30.0, float(SCANS_AMCL))
+    traces = []
+    for _ in range(2):
+        node, run = run_node(dev, label, push_check, AMCL, gts, scans, seed=7)
+        p = node.localizers[0].params.amcl
+        assert (p.particles, p.iterations, p.size_control_set) == (512, 8,
+                                                                   140), p
+        assert_rendering_launches(run)
+        reset_counts()
+        out = node.process_scan(0, kid_scan)
+        counts = read_counts()
+        pose = node.localizers[0].pose.cpu()
+        err = math.hypot(float(pose[0, 2]) - kid[0],
+                         float(pose[1, 2]) - kid[1])
+        print(f"AMCL kidnap of {KIDNAP} m: |pose - truth| = {err:.6f} m "
+              f"(limit {3 * cfg.grid.cellsize} m), kernel launches "
+              f"{json.dumps(counts)} [{label}]")
+        assert out is not None and not out.is_nan
+        assert err < 3 * cfg.grid.cellsize, err
+        assert counts["segment_min"] == counts["window_replay"] == 1, counts
+        traces.append(torch.cat([run["trace"], pose[None]]))
+    assert torch.equal(traces[0], traces[1]), \
+        "AMCL mode: the same seed gave another pose trace"
+    print(f"AMCL path: the same seed gives the same {len(traces[0])}-pose "
+          "trace bit for bit, kidnap included")
+    return node, run
+
+
+JUMP_SCAN = 12          # the scan of the odometry path taken off the path
+
+
+def odom_path(dev, label: str, push_check):
+    """The ICP path with use_odom_rescue on (configs/single-laser.yaml's
+    settings, registration_mode 0), odometry fed through
+    SlamNode.on_odometry before every scan (the truth in the start's
+    frame, scans 0.1 s apart).  Scan JUMP_SCAN is taken 0.35 m off the
+    path (3.5 m/s): the rescue must replace that match, and only that one,
+    with the odometry delta, and the node must keep tracking."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode, odometry
+
+    flat = {**SINGLE_LASER, "registration_mode": 0, "use_odom_rescue": True}
+    cfg = from_flat_params(flat)
+    node = SlamNode(cfg, dtype=torch.float32, device=dev)
+    half = cfg.grid.size_meters * 0.5
+    gt = trajectory((half, half, 0.0), SCANS_ODOM)
+    flags = []
+    check = odometry.check
+
+    def counted(*args):
+        T, rescued = check(*args)
+        flags.append(rescued)
+        return T, rescued
+
+    odometry.check = counted
+    node.mapper._push_fn = push_check
+    reset_counts()
+    errs = []
+    try:
+        for k, (x, y, th) in enumerate(gt):
+            # odometry: the truth in the frame of the start pose
+            dx, dy = x - half, y - half
+            node.on_odometry(0, dx, dy, th, stamp=0.1 * k)
+            seen = (x + 0.35, y, th) if k == JUMP_SCAN else (x, y, th)
+            out = node.process_scan(0, scan_msg(scan_ranges(seen, 30.0),
+                                                30.0, 0.1 * k))
+            if k:
+                assert out is not None and not out.is_nan, k
+                pose = node.localizers[0].pose
+                errs.append(math.hypot(float(pose[0, 2]) - x,
+                                       float(pose[1, 2]) - y))
+                if k == JUMP_SCAN:
+                    jump_pose = (float(pose[0, 2]), float(pose[1, 2]))
+    finally:
+        odometry.check = check
+        node.mapper._push_fn = push_cuda
+    torch.cuda.synchronize()
+    launches = read_counts()
+    rescued = [k + 1 for k, f in enumerate(flags) if bool(f)]
+    limit = 2.5 * cfg.grid.cellsize
+    x, y, _ = gt[JUMP_SCAN]
+    print(f"odometry rescue path (ICP mode): {len(flags)} scans checked, "
+          f"rescued scans {rescued} (the jump at scan {JUMP_SCAN}); pose "
+          f"after the jump ({jump_pose[0]:.6f}, {jump_pose[1]:.6f}) m, "
+          f"truth ({x:.6f}, {y:.6f}) m; max |pose - truth| = {max(errs):.6f}"
+          f" m (limit {limit} m); kernel launches {json.dumps(launches)} "
+          f"[{label}]")
+    assert node.localizers[0].params.odom is not None
+    assert len(flags) == SCANS_ODOM - 1 and rescued == [JUMP_SCAN], rescued
+    assert max(errs) < limit, errs
+    assert launches["segment_min"] == SCANS_ODOM - 1, launches
+    return node
+
+
+def render_check(node, label: str) -> dict:
+    """render_ranges on the ICP path's grid from robot0's pose: forward
+    with and without a segment cache (its launches counted), the
+    unrefined forward equal to raycast_checked's ranges, and the pose and
+    cell gradients of a weighted sum on the card against the CPU port's
+    on a copy of the grid (float32 on both; the card adds the cell
+    cotangent's four taps a beam in no fixed order and rounds cos and sin
+    its own way: RENDER_TOL of the largest magnitude).  A grazing beam can
+    hit on one device and miss on the other (the ray directions differ in
+    the last bit): at most HIT_FLIPS of the beams may, and the weighted sum
+    weighs those beams 0."""
+    import dataclasses
+
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.render import render_ranges
+    from ohm_tsd_slam_tpu_torch.grid.state import from_arrays, to_arrays
+
+    loc = node.localizers[0]
+    grid, geom = node.grid, loc.geom
+    p = loc.pose.cpu()
+    xyt = (float(p[0, 2]), float(p[1, 2]),
+           math.atan2(float(p[1, 0]), float(p[0, 0])))
+    pose = se2.make(*xyt, device=grid.tsd.device)
+    seg = node._segments_for(grid)
+    out = {}
+    for name, kwargs in (("cached", dict(segments=seg)), ("inline", {})):
+        reset_counts()
+        ranges, hit, res = render_ranges(grid, geom, pose, **kwargs)
+        torch.cuda.synchronize()
+        out[f"launches_{name}"] = read_counts()
+        la = out[f"launches_{name}"]
+        assert la["segment_min"] == la["window_replay"] == 1, la
+        assert la["window_rounds"] == 1, la
+        assert la["segment_layers"] == la["pack_rows"] == (
+            0 if name == "cached" else 1), la
+        assert int(res.n_dropped) == 0 and int(hit.sum()) > 500, out
+    raw = render_ranges(grid, geom, pose, refine=False, segments=seg)[0]
+    assert torch.equal(raw, rf.raycast_checked(grid, geom, pose,
+                                               segments=seg).ranges)
+    out["hits"] = int(hit.sum())
+    out["refine_max_shift_m"] = float((ranges - raw).abs().max())
+
+    w_np = np.random.default_rng(5).normal(size=geom.size).astype(np.float32)
+    cpu_grid = from_arrays(to_arrays(grid), device="cpu")
+    cpu_hit = render_ranges(cpu_grid, geom, pose.cpu())[1]
+    flips = (cpu_hit != hit.cpu()).numpy()
+    out["hit_flips"] = int(flips.sum())
+    assert out["hit_flips"] <= HIT_FLIPS * geom.size, out
+    w_np[flips] = 0.0
+
+    def grads(g, dev_):
+        x = torch.tensor(xyt, dtype=torch.float32, device=dev_,
+                         requires_grad=True)
+        tsd = g.tsd.clone().requires_grad_(True)
+        r, _, _ = render_ranges(dataclasses.replace(g, tsd=tsd), geom,
+                                se2.make(x[0], x[1], x[2], device=dev_))
+        (torch.from_numpy(w_np).to(dev_) * r).sum().backward()
+        return x.grad.cpu(), tsd.grad.cpu()
+
+    gp, gc = grads(grid, grid.tsd.device)
+    cp, cc = grads(cpu_grid, "cpu")
+    out["pose_grad"] = [float(v) for v in gp]
+    out["pose_grad_cpu"] = [float(v) for v in cp]
+    out["pose_grad_max_abs_err"] = float((gp - cp).abs().max())
+    out["cell_grad_max_abs_err"] = float((gc - cc).abs().max())
+    out["cell_grad_max_abs"] = float(cc.abs().max())
+    out["cells_nonzero"] = int((gc != 0).sum())
+    out["cells_nonzero_cpu"] = int((cc != 0).sum())
+    out["tolerance"] = RENDER_TOL
+    print(f"render check (main grid, 1081 beams): {json.dumps(out)} [{label}]")
+    assert out["pose_grad_max_abs_err"] <= RENDER_TOL * float(
+        cp.abs().max()), out
+    assert out["cell_grad_max_abs_err"] <= RENDER_TOL * out[
+        "cell_grad_max_abs"], out
+    assert out["cells_nonzero"] > 1000, out
+    return out
+
+
+def twin_multi_check(node, label: str) -> dict:
+    """match_twinpoint and icp_multi_init once each on the card, on the
+    TSD path's model and scene, with draws given (TwinInject from numpy,
+    seed 4), against the CPU port on the same inputs (float32 on both:
+    TWIN_TOL on the transforms, the same winner).  The comparison runs
+    TWIN_TRIALS of the yaml's trials (the CPU's share of the work); the
+    timed call on the card all of them."""
+    import dataclasses
+
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.registration.multi_init import icp_multi_init
+    from ohm_tsd_slam_tpu_torch.registration.twinpoint import (
+        TwinInject,
+        match_twinpoint,
+    )
+    from ohm_tsd_slam_tpu_torch.sensor.polar2d import data_to_cartesian
+
+    loc = node.localizers[0]
+    grid, geom, pose = node.grid, loc.geom, loc.pose
+    p = pose.cpu()
+    xyt = (float(p[0, 2]) + 0.03, float(p[1, 2]) - 0.02,
+           math.atan2(float(p[1, 0]), float(p[0, 0])) + 0.01)
+    data, mask = node._preprocess(loc, scan_ranges(xyt, geom.max_range))
+    model = rf.raycast_fast(grid, geom, pose,
+                            segments=node._segments_for(grid))
+    scene, smask = data_to_cartesian(geom, data, mask)
+    rp = loc.params.ransac
+    rng = np.random.default_rng(4)
+    res_deg = math.degrees(rp.resolution)
+    min_d, max_d = max(1, int(3.0 / res_deg)), max(2, int(10.0 / res_deg))
+    n_valid = int(model.mask.sum())
+    rank1 = rng.integers(0, n_valid - 1 - min_d, rp.trials)
+    rank2 = rank1 + min_d + rng.integers(
+        0, 1 << 30, rp.trials) % np.maximum(
+            np.minimum(n_valid - rank1 - 1, max_d) - min_d, 1)
+    ctrl = rng.choice(np.nonzero(smask.cpu().numpy())[0],
+                      rp.size_control_set, replace=False)
+    arrays = [ctrl, np.ones(len(ctrl), bool), rank1, rank2,
+              rank2 < n_valid]
+    clouds = (model.coords, model.mask, scene, smask)
+    rp_check = dataclasses.replace(rp, trials=TWIN_TRIALS)
+    seeds = torch.stack([torch.eye(3, device=pose.device),
+                         se2.make(0.05, -0.03, 0.02, device=pose.device),
+                         se2.make(1.5, -1.0, 0.8, device=pose.device)])
+    out = {}
+    results = {}
+    for where, dev_ in (("card", pose.device), ("cpu", "cpu")):
+        inject = TwinInject(*(torch.from_numpy(np.asarray(a)).to(dev_)
+                              for a in arrays[:2]),
+                            *(torch.from_numpy(np.asarray(a[:TWIN_TRIALS]))
+                              .to(dev_) for a in arrays[2:]))
+        c = tuple(t.to(dev_) for t in clouds)
+        T = match_twinpoint(None, *c, rp_check, inject=inject)
+        mi = icp_multi_init(*c, seeds.to(dev_), loc.params.icp,
+                            sensor_pose=pose.to(dev_))
+        results[where] = (T.cpu(), mi)
+    out["twin_T_max_abs_err"] = float(
+        (results["card"][0] - results["cpu"][0]).abs().max())
+    out["twin_T"] = results["card"][0].flatten().tolist()
+    out["multi_best_seed"] = [int(results[w][1].best_seed)
+                              for w in ("card", "cpu")]
+    out["multi_pairs"] = [int(results[w][1].pairs) for w in ("card", "cpu")]
+    out["multi_T_max_abs_err"] = float(
+        (results["card"][1].T.cpu() - results["cpu"][1].T).abs().max())
+    out["tolerance"] = TWIN_TOL
+    print(f"TwinPoint and multi-init on the card against the CPU port: "
+          f"{json.dumps(out)} [{label}]")
+    assert out["twin_T_max_abs_err"] <= TWIN_TOL, out
+    assert not torch.equal(results["card"][0], torch.eye(3)), out
+    assert out["multi_best_seed"][0] == out["multi_best_seed"][1], out
+    assert out["multi_T_max_abs_err"] <= TWIN_TOL, out
+    inject = TwinInject(*(torch.from_numpy(np.asarray(a)).to(pose.device)
+                          for a in arrays))
+    return {f"match_twinpoint ({rp.trials} trials, {rp.size_control_set} "
+            "control points, draws given)": lambda: match_twinpoint(
+                None, *clouds, rp, inject=inject),
+            "icp_multi_init (3 seeds)": lambda: icp_multi_init(
+                *clouds, seeds, loc.params.icp, sensor_pose=pose)}
 
 
 def peak_mib(fn) -> tuple:
@@ -1033,7 +1379,7 @@ def device_kernels(fn):
     return len(on_device), sum(e.device_time for e in on_device) * 1e-3
 
 
-def device_kernel_counts(node, label: str) -> None:
+def device_kernel_counts(node, label: str, more: dict) -> None:
     """Device kernels each stage of the main path launches (the render and
     the step are bound by their count, not by the device's work).  Run
     after every time is taken: once the profiler has run, its tracing hooks
@@ -1055,7 +1401,7 @@ def device_kernel_counts(node, label: str) -> None:
                                                      segments=seg)),
             ("localize_step", lambda: localize_step(
                 grid, pose, loc.last_pose, data, mask, loc.params,
-                segments=seg))):
+                segments=seg)), *more.items()):
         found = device_kernels(fn)
         print(f"device kernels {name}: " + (
             "not measured (the profiler shows no device activity)"
@@ -1355,6 +1701,7 @@ def ransac_times(node, narrow, label: str) -> tuple:
     scene, smask = data_to_cartesian(geom, data, mask)
     rp, beam = loc.params.ransac, loc.params.beam
     clouds = (model.coords, model.mask, scene, smask)
+    rp_check = dataclasses.replace(rp, trials=TWIN_TRIALS)
     modes = {m: dataclasses.replace(loc.params, mode=int(m))
              for m in (RegMode.TSD, RegMode.EXP, RegMode.PDF)}
 
@@ -1458,6 +1805,101 @@ def ransac_times(node, narrow, label: str) -> tuple:
     t[f"process_scan (TSD mode, host clock; {pushed} of {len(wall)} "
       "pushed)"] = wall
     return report_times(t, label), facts
+
+
+def slice_times(gn, amcl, main, twin_fns: dict, label: str) -> tuple:
+    """Sync checks and times of the modes GN and AMCL (on the nodes of
+    their paths, from each node's last pose), the render on the ICP
+    path's grid and the TwinPoint and multi-init calls.  Returns the
+    medians and the two modes' steps (for device_kernel_counts)."""
+    import dataclasses
+
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid.render import render_ranges
+    from ohm_tsd_slam_tpu_torch.registration.amcl import match_amcl
+    from ohm_tsd_slam_tpu_torch.registration.gauss_newton import (
+        match_gauss_newton,
+    )
+    from ohm_tsd_slam_tpu_torch.sensor.polar2d import data_to_cartesian
+    from ohm_tsd_slam_tpu_torch.slam.localize import localize_step
+
+    def step_inputs(node):
+        loc = node.localizers[0]
+        p = loc.pose.cpu()
+        xyt = (float(p[0, 2]) + 0.02, float(p[1, 2]) - 0.01,
+               math.atan2(float(p[1, 0]), float(p[0, 0])) + 0.005)
+        data, mask = node._preprocess(loc, scan_ranges(xyt, 30.0))
+        scene, smask = data_to_cartesian(loc.geom, data, mask)
+        return loc, node.grid, loc.pose.contiguous(), data, mask, scene, smask
+
+    gloc, ggrid, gpose, gdata, gmask, gscene, gsmask = step_inputs(gn)
+    aloc, agrid, apose, adata, amask, ascene, asmask = step_inputs(amcl)
+    aseg = amcl._segments_for(agrid)
+
+    def gn_step():
+        return localize_step(ggrid, gpose, gloc.last_pose, gdata, gmask,
+                             gloc.params)
+
+    def amcl_step():
+        return localize_step(agrid, apose, aloc.last_pose, adata, amask,
+                             aloc.params, generator=amcl._draws(0, 1000),
+                             segments=aseg)
+
+    # neither mode reads the device inside localize_step
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gn_step()
+        amcl_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("sync check: localize_step in the modes GN and AMCL ran with no "
+          "host sync")
+    for name, fn in (("localize_step (GN)", gn_step),
+                     ("localize_step (AMCL)", amcl_step)):
+        peak, held = peak_mib(fn)
+        print(f"peak device memory {name}: {peak:.1f} MiB above the "
+              f"{held:.1f} MiB held [{label}]")
+
+    t = {}
+    t["match_gauss_newton (30 iterations, 1081 beams)"] = time_cuda(
+        lambda: match_gauss_newton(ggrid, gpose, gscene, gsmask,
+                                   gloc.params.gn))
+    t["localize_step (GN mode)"] = time_cuda(gn_step)
+    t["match_amcl (512 particles, 8 iterations, 140 control points)"] = \
+        time_cuda(lambda: match_amcl(amcl._draws(0, 1000), agrid, apose,
+                                     ascene, asmask, aloc.params.amcl))
+    t["localize_step (AMCL mode, fast caster)"] = time_cuda(amcl_step)
+    t["localize_step (ICP mode, the AMCL path's scan)"] = time_cuda(
+        lambda: localize_step(
+            agrid, apose, aloc.last_pose, adata, amask,
+            dataclasses.replace(aloc.params, mode=0), segments=aseg))
+
+    mloc = main.localizers[0]
+    mgrid, mgeom = main.grid, mloc.geom
+    mpose = mloc.pose.contiguous()
+    mseg = main._segments_for(mgrid)
+    t["render_ranges forward (cached segments, Newton polish)"] = time_cuda(
+        lambda: render_ranges(mgrid, mgeom, mpose, segments=mseg))
+    t["render_ranges forward (inline extraction)"] = time_cuda(
+        lambda: render_ranges(mgrid, mgeom, mpose))
+    w = torch.ones(mgeom.size, device=mpose.device)
+
+    def forward_with_grad():
+        x = mpose.clone().requires_grad_(True)
+        tsd = mgrid.tsd.clone().requires_grad_(True)
+        r, _, _ = render_ranges(dataclasses.replace(mgrid, tsd=tsd), mgeom,
+                                x)
+        return (w * r).sum()
+
+    # every timed backward gets a forward made before the clock starts
+    fresh = iter([forward_with_grad() for _ in range(N_TIMED + 3)])
+    t["render_ranges backward (pose and cell gradients)"] = time_cuda(
+        lambda: next(fresh).backward())
+    for name, fn in twin_fns.items():
+        t[name] = time_cuda(fn)
+    return report_times(t, label), {"localize_step (GN mode)": gn_step,
+                                    "localize_step (AMCL mode)": amcl_step}
 
 
 def kernel_bounds(facts: dict) -> dict:
@@ -1593,6 +2035,13 @@ def main() -> int:
     narrow, narrow_launches = narrow_path(dev, label, caster_stats,
                                           push_check)
     tsd_node, tsd_launches = ransac_paths(dev, label, push_check)
+    # 4d. GN, AMCL with the kidnap, the odometry rescue; the render on the
+    # ICP path's grid; TwinPoint and multi-init on the TSD path's scene
+    gn_node, _ = gn_path(dev, label, push_check)
+    amcl_node, _ = amcl_path(dev, label, push_check)
+    odom_path(dev, label, push_check)
+    render_check(node, label)
+    twin_fns = twin_multi_check(tsd_node, label)
     print(f"kernel check caster, every call: {json.dumps(caster_stats)}")
     # every push of the kernel check and of the five paths: PushCheck
     # raises on the first tile that disagrees, so the counts below are 0
@@ -1609,9 +2058,11 @@ def main() -> int:
     times, facts = stage_times(node, label)
     more, more_facts = ransac_times(tsd_node, narrow, label)
     times.update(more)
+    more, steps = slice_times(gn_node, amcl_node, node, twin_fns, label)
+    times.update(more)
     facts.update(more_facts)
     bounds = kernel_bounds(facts)
-    device_kernel_counts(node, label)
+    device_kernel_counts(node, label, steps)
 
     def entry(name, fn, replaces, key, launches_, err, bound, library=None,
               **extra):

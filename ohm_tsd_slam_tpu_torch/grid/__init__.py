@@ -12,6 +12,7 @@ from ohm_tsd_slam_tpu_torch.grid.interpolate import (
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
 from ohm_tsd_slam_tpu_torch.grid.push import push
 from ohm_tsd_slam_tpu_torch.grid.raycast import RaycastResult, raycast
+from ohm_tsd_slam_tpu_torch.grid.render import render_ranges
 # as in the JAX package, the raycast_fast function is not bound here: it
 # would shadow the grid.raycast_fast submodule
 from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
@@ -33,6 +34,7 @@ __all__ = [
     "interpolate_normal",
     "best_push",
     "push",
+    "render_ranges",
     "RaycastResult",
     "raycast",
 ]

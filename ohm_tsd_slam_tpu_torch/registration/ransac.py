@@ -366,14 +366,14 @@ def _transform_ctrl(prep: _Prep, phi: torch.Tensor, t: torch.Tensor):
     return torch.stack([xs, ys], dim=-1)
 
 
-def _chunked_scores(prep: _Prep, chunk: int, score_fn: Callable):
+def _chunked_scores(cands: Sequence[torch.Tensor], chunk: int,
+                    score_fn: Callable):
     """Score all candidates, `chunk` at a time -> a tuple of [K] scores.
-    `score_fn(phi [k], t [k, 2], valid [k])` returns a tuple of [k]
-    tensors; the last chunk is short, not padded."""
-    K = prep.phi_cand.shape[0]
-    parts = [score_fn(prep.phi_cand[k0:k0 + chunk],
-                      prep.t_cand[k0:k0 + chunk],
-                      prep.cand_valid[k0:k0 + chunk])
+    `cands` are per-candidate tensors ([K, ...], e.g. phi [K], t [K, 2],
+    valid [K]); `score_fn` takes their slices of one chunk and returns a
+    tuple of [k] tensors; the last chunk is short, not padded."""
+    K = cands[0].shape[0]
+    parts = [score_fn(*(c[k0:k0 + chunk] for c in cands))
              for k0 in range(0, K, chunk)]
     return tuple(torch.cat(col) for col in zip(*parts))
 
@@ -464,8 +464,9 @@ def match_normal(generator: Optional[torch.Generator], model: torch.Tensor,
         ratio = torch.where(good, ratio, -_BIG)
         return ratio, cnt, err_sum, max_cnt
 
-    ratio, cnt, err_sum, max_cnt = _chunked_scores(prep, params.chunk,
-                                                   score_chunk)
+    ratio, cnt, err_sum, max_cnt = _chunked_scores(
+        (prep.phi_cand, prep.t_cand, prep.cand_valid), params.chunk,
+        score_chunk)
     # quantize ratio by the reference's equalThres=1e-5 so the
     # similarity tie-break (equal ratio -> lower errSum) applies
     ratio_q = torch.round(ratio * 1e5)
@@ -539,8 +540,9 @@ def match_pdf(generator: Optional[torch.Generator], model: torch.Tensor,
         good = valid & (fov_cnt.to(logp_sum.dtype) > c_gate)
         return torch.where(good, logp_sum, -_BIG), logp_sum, fov_cnt
 
-    logp, logp_raw, fov_cnt = _chunked_scores(prep, params.chunk,
-                                              score_chunk)
+    logp, logp_raw, fov_cnt = _chunked_scores(
+        (prep.phi_cand, prep.t_cand, prep.cand_valid), params.chunk,
+        score_chunk)
     T = _lex_best((logp,), prep.phi_cand, prep.t_cand, prep.ok)
     if return_scores:
         return T, dict(prep=prep, logp=logp, logp_raw=logp_raw,

@@ -1,6 +1,6 @@
 """The SLAM node: grid ownership, per-robot localizers, runtime loops
-(port of ohm_tsd_slam_tpu/slam/node.py for the registration modes ICP,
-EXP, PDF and TSD).
+(port of ohm_tsd_slam_tpu/slam/node.py: every registration mode and the
+odometry rescue).
 
 SlamNode + the ThreadSLAM architecture (src/SlamNode.cpp,
 src/ThreadSLAM.cpp).  The grid is a value swapped under a lock (updates
@@ -18,13 +18,21 @@ two gate flags with the fast caster's drop count, then the accepted pose.
 A nonzero drop count re-runs the step with the exact march (the JAX
 node's guarded raycast_checked), which costs a third read on that scan
 only.  The fast caster's segment extraction runs once per grid version,
-after the mapper drain that made it, and every scan reuses it.
+after the mapper drain that made it, and every scan reuses it.  A robot
+in mode GN renders no model scan, so the node extracts nothing for it
+(as the JAX node): on a node whose robots all run GN, kernels A, B and E
+never launch.
 
-The stochastic matchers (modes EXP/PDF/TSD) draw from a `torch.Generator`
-that the node seeds anew for every robot and scan from its one `seed`, as
-the JAX node folds robot and scan counter into its base key: a run is a
-function of the seed, and the exact-march re-run of a scan draws the same
-numbers as its first run.
+With `use_odom_rescue`, `on_odometry` records the latest odometry pose and
+each scan advances the rescue state with it (odomRescueUpdate,
+ThreadLocalize.cpp:334-336) before `localize_step` checks the match
+against it.
+
+The stochastic matchers (modes EXP/PDF/TSD/AMCL) draw from a
+`torch.Generator` that the node seeds anew for every robot and scan from
+its one `seed`, as the JAX node folds robot and scan counter into its base
+key: a run is a function of the seed, and the exact-march re-run of a scan
+draws the same numbers as its first run.
 
     node = SlamNode(from_flat_params({...}), dtype=torch.float32)
     node.process_scan(robot, LaserScan(...))
@@ -44,7 +52,7 @@ import numpy as np
 import torch
 
 from ohm_tsd_slam_tpu_torch import native
-from ohm_tsd_slam_tpu_torch.config import RobotConfig, SlamConfig
+from ohm_tsd_slam_tpu_torch.config import RegMode, RobotConfig, SlamConfig
 from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid import state as grid_state
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
@@ -58,6 +66,7 @@ from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
     clamp_min_range,
     standard_mask,
 )
+from ohm_tsd_slam_tpu_torch.slam import odometry
 from ohm_tsd_slam_tpu_torch.slam.grid_pub import GridPublisher
 from ohm_tsd_slam_tpu_torch.slam.localize import (
     LocalizeParams,
@@ -110,6 +119,10 @@ class Localizer:
     # the fast caster's drop count on the last scan (nonzero: that scan
     # was re-rendered with the exact march)
     rays_dropped: int = 0
+    # odometry rescue (OdometryAnalyzer state; None until the first scan
+    # that has an odometry pose) and the latest odometry pose and stamp
+    odom_state: Optional[odometry.OdomState] = None
+    latest_odom: Optional[tuple] = None
     # tf chain for the map->odom correction (sendTransform,
     # ThreadLocalize.cpp:604-689): static laser->footprint and the latest
     # footprint->odom transform, fed by set_static_tf / on_footprint_odom
@@ -178,6 +191,13 @@ class SlamNode:
                 self._segments = seg
             return seg
 
+    @staticmethod
+    def _needs_segments(loc: Localizer) -> bool:
+        """Whether the robot's step renders with the fast caster: not with
+        the exact march, and not in mode GN, which renders nothing."""
+        return (loc.params.fast_raycast
+                and loc.params.mode != int(RegMode.GN))
+
     def _draws(self, robot: int, scan_count: int) -> torch.Generator:
         """The draw stream of scan `scan_count` of `robot`: a generator
         on the node's device seeded from (seed, robot, scan counter).
@@ -226,7 +246,7 @@ class SlamNode:
         loc.last_pose = loc.pose
         loc.params = LocalizeParams.from_config(
             rc.registration, loc.geom, bounds=(0.0, gw, 0.0, gw),
-            odom_cfg=rc.odom)
+            odom_cfg=rc.odom, cell_size=self.config.grid.cellsize)
 
         # free footprint + initial map push (:503-507)
         fp = rc.footprint
@@ -243,7 +263,7 @@ class SlamNode:
             with self._grid_lock:
                 self.grid = grid
         loc.initialized = True
-        if loc.params.fast_raycast:
+        if self._needs_segments(loc):
             self._segments_for(grid)
 
     def _preprocess(self, loc: Localizer, ranges: np.ndarray):
@@ -275,12 +295,13 @@ class SlamNode:
         with self._grid_lock:
             grid = self.grid
         params = loc.params
-        seg = self._segments_for(grid) if params.fast_raycast else None
+        seg = self._segments_for(grid) if self._needs_segments(loc) else None
         count = loc.scan_count
         loc.scan_count += 1
+        odom_state = self._odom_update(loc, scan.stamp)
         res = localize_step(grid, loc.pose, loc.last_pose, data, mask,
                             params, generator=self._draws(robot, count),
-                            segments=seg)
+                            odom_state=odom_state, segments=seg)
 
         reg_error, significant, n_over = torch.stack(
             [res.reg_error.to(torch.int64), res.significant.to(torch.int64),
@@ -297,7 +318,7 @@ class SlamNode:
             res = localize_step(
                 grid, loc.pose, loc.last_pose, data, mask,
                 dataclasses.replace(params, fast_raycast=False),
-                generator=self._draws(robot, count))
+                generator=self._draws(robot, count), odom_state=odom_state)
             reg_error, significant = torch.stack(
                 [res.reg_error, res.significant]).tolist()
         loc.rays_dropped = n_over
@@ -322,6 +343,30 @@ class SlamNode:
             cb(robot, pose_msg)
         self._broadcast_tf(robot, loc, pose_msg, scan.stamp)
         return pose_msg
+
+    def _odom_update(self, loc: Localizer,
+                     stamp: float) -> Optional[odometry.OdomState]:
+        """Advance the robot's rescue state with the latest odometry pose
+        (odomRescueUpdate call site, ThreadLocalize.cpp:334-336): the
+        first scan with one initializes it.  None without the rescue or
+        before any odometry."""
+        if loc.params.odom is None or loc.latest_odom is None:
+            return None
+        odom_pose, _ = loc.latest_odom
+        if loc.odom_state is None:
+            loc.odom_state = odometry.init(loc.params.odom, odom_pose, stamp)
+        else:
+            loc.odom_state = odometry.update(loc.odom_state, odom_pose,
+                                             stamp, odom_ok=True)
+        return loc.odom_state
+
+    def on_odometry(self, robot: int, x: float, y: float, yaw: float,
+                    stamp: float = 0.0) -> None:
+        """Feed an odometry sample for `robot` (the reference pulls it from
+        the tf tree, OdometryAnalyzer.cpp:65-151); the rescue stage uses
+        it when robot.odom.use_odom_rescue is set."""
+        pose = se2.make(x, y, yaw, dtype=self.dtype, device=self.device)
+        self.localizers[robot].latest_odom = (pose, stamp)
 
     def set_static_tf(self, robot: int, x: float, y: float,
                       yaw: float) -> None:

@@ -15,6 +15,21 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 
+def limit_cpu_threads() -> None:
+    """Run torch's CPU operators on one thread in this process.
+
+    The port's CPU tests call this when imported: a test runner with
+    several worker processes (pytest -n) otherwise starts one intra-op
+    thread per core in every worker, next to XLA's own pools, and the
+    oversubscribed cores slow each worker many times over.  The tests'
+    tensors are small, so one thread loses little.  The library itself
+    never changes torch's thread count."""
+    import torch
+
+    if torch.get_num_threads() != 1:
+        torch.set_num_threads(1)
+
+
 def rect_walls(x0: float, y0: float, x1: float, y1: float) -> List[Tuple]:
     """Axis-aligned rectangle as four segments (a "room")."""
     return [

@@ -25,6 +25,9 @@ from ohm_tsd_slam_tpu.ops.compact_pallas import (
 from ohm_tsd_slam_tpu.ops.pack_rows_pallas import pack_channels_rows_pallas
 from ohm_tsd_slam_tpu_torch.grid import compact
 from ohm_tsd_slam_tpu_torch.ops.compact_channels_cuda import compact_channels
+from ohm_tsd_slam_tpu_torch.utils.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 CHUNK = 128
 

@@ -22,6 +22,9 @@ from ohm_tsd_slam_tpu.sensor import polar2d as jpolar
 from ohm_tsd_slam_tpu_torch import config as tcfg
 from ohm_tsd_slam_tpu_torch.core import se2 as tse2
 from ohm_tsd_slam_tpu_torch.sensor import polar2d as tpolar
+from ohm_tsd_slam_tpu_torch.utils.testing import limit_cpu_threads
+
+limit_cpu_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64

@@ -37,7 +37,13 @@ from ohm_tsd_slam_tpu_torch.grid.state import (
     to_arrays,
 )
 from ohm_tsd_slam_tpu_torch.sensor import polar2d as tpolar
-from ohm_tsd_slam_tpu_torch.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam_tpu_torch.utils.testing import (
+    limit_cpu_threads,
+    rect_walls,
+    simulate_scan,
+)
+
+limit_cpu_threads()
 
 GRID = dict(map_size=8, cellsize=0.04)            # 256^2, 32x32 tiles
 GEOM = dict(size=541, angular_res=math.radians(0.5),

@@ -30,7 +30,13 @@ from ohm_tsd_slam_tpu_torch.grid.state import create, to_arrays
 from ohm_tsd_slam_tpu_torch.ops.kernel_check import PushCheck
 from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
 from ohm_tsd_slam_tpu_torch.sensor import polar2d
-from ohm_tsd_slam_tpu_torch.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam_tpu_torch.utils.testing import (
+    limit_cpu_threads,
+    rect_walls,
+    simulate_scan,
+)
+
+limit_cpu_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = GridConfig(map_size=8, cellsize=0.04)       # 256^2, 32x32 tiles

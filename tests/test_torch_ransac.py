@@ -35,7 +35,13 @@ from ohm_tsd_slam_tpu_torch.grid.push import push
 from ohm_tsd_slam_tpu_torch.grid.state import create, to_arrays
 from ohm_tsd_slam_tpu_torch.registration import ransac as tr
 from ohm_tsd_slam_tpu_torch.sensor import polar2d as tpolar
-from ohm_tsd_slam_tpu_torch.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam_tpu_torch.utils.testing import (
+    limit_cpu_threads,
+    rect_walls,
+    simulate_scan,
+)
+
+limit_cpu_threads()
 
 F64 = torch.float64
 TOL = 1e-12          # closed forms, float64 on both sides

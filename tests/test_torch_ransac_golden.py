@@ -16,7 +16,11 @@ SAME candidate set.  Asserted, in float64 on the CPU:
     best-so-far improvements;
   * the winning transform of each matcher against tbest.bin at 1e-9 (EXP
     through the reference's streaming acceptance rule, which is not a total
-    order, replayed over the port's score grids).
+    order, replayed over the port's score grids);
+  * TwinPointMatching (golden/data/ransac/twin/, tbest_twin.bin): its
+    draws replayed (golden_io.replay_twin) into the port's
+    match_twinpoint, the candidate set after every gate, each candidate's
+    consensus error at 1e-6 relative, and the streaming winner at 1e-9.
 
 This file imports torch and numpy only (no JAX function is traced).
 """
@@ -39,14 +43,22 @@ from ohm_tsd_slam_tpu_torch.registration.ransac import (
     match_tsd,
     pca_normals,
 )
+from ohm_tsd_slam_tpu_torch.registration.twinpoint import (
+    TwinInject,
+    match_twinpoint,
+)
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
+from ohm_tsd_slam_tpu_torch.utils.testing import limit_cpu_threads
 
 from golden_io import (
     RANSAC_DIR,
     load_score3d,
     replay_picks,
     replay_subsample,
+    replay_twin,
 )
+
+limit_cpu_threads()
 
 pytestmark = pytest.mark.skipif(
     not os.path.exists(os.path.join(RANSAC_DIR, "tbest.bin")),
@@ -246,3 +258,73 @@ def test_tsd_improvements_match(setup):
     _check_improvements(s, rows, aux["logp_raw"].numpy(),
                         aux["logp"].numpy(), scale=10.0, tol=1e-5)
     np.testing.assert_allclose(T.numpy(), s["tbest"][2], atol=1e-9)
+
+
+def test_twinpoint_candidates_scores_and_winner(setup):
+    """TwinPointMatching against the compiled reference, as
+    tests/test_reference_parity_ransac.py holds the JAX matcher: the
+    candidates the reference's trace recorded after the eps/phi/trans
+    gates and cnt > 0 (TwinPointMatching.cpp:216-372), their consensus
+    errors, and the winner of the reference's streaming acceptance
+    (:349-361, in its one-thread visit order)."""
+    s, z = setup, setup["z"]
+    N = s["M"].shape[0]
+    params = RansacParams(
+        trials=int(z["trials"]), eps_thresh=float(z["eps_thresh"]),
+        size_control_set=int(z["size_control"]),
+        phi_max=float(z["phi_max"]), resolution=float(z["resolution"]),
+        trans_max=1.5)
+    res_deg = math.degrees(params.resolution)
+    min_d = max(1, int(3.0 / res_deg))
+    max_d = max(2, int(10.0 / res_deg))
+
+    maskM, maskS = s["maskM"].numpy(), s["maskS"].numpy()
+    ctrl, r1s, r2s = replay_twin(
+        int(z["seed"]), [i for i in range(N) if maskS[i]], int(maskM.sum()),
+        params.trials, params.size_control_set, min_d, max_d)
+    C = params.size_control_set
+    inject = TwinInject(*padded(ctrl, C), _t(np.asarray(r1s)),
+                        _t(np.asarray(r2s)),
+                        torch.ones(params.trials, dtype=torch.bool))
+    _, aux = match_twinpoint(None, *_clouds(s), params, inject=inject,
+                             return_scores=True)
+
+    span = aux["span"]
+    idx1 = aux["idx1"].numpy()
+    good = aux["pair_ok"].reshape(-1).numpy() & (aux["cnt"].numpy() > 0)
+    err, cnt = aux["err"].numpy(), aux["cnt"].numpy()
+    max_cnt = aux["max_cnt"].numpy()
+
+    rows = load_score3d(os.path.join(RANSAC_DIR, "twin", "score3D.dat"))
+    assert len(rows) > 50, len(rows)
+    ref_set = set()
+    for trial, im, isc, score in rows:
+        trial, im, isc = int(trial), int(im), int(isc)
+        assert im == idx1[trial], (trial, im, idx1[trial])
+        off = isc - im + span
+        assert 0 <= off < 2 * span
+        flat = trial * 2 * span + off
+        ref_set.add(flat)
+        np.testing.assert_allclose(err[flat], score, rtol=1e-6, atol=1e-8,
+                                   err_msg=str((trial, isc)))
+    got_set = set(np.nonzero(good)[0].tolist())
+    assert got_set == ref_set, (sorted(got_set - ref_set)[:5],
+                                sorted(ref_set - got_set)[:5])
+
+    # the streaming winner (not a total order): trials ascending, then i
+    cnt_best, err_best, rate_best, best = 0, 1e12, 0.0, None
+    for flat in sorted(got_set):
+        c, e = cnt[flat], err[flat]
+        r = c / max(max_cnt[flat], 1)
+        if (((r - rate_best) > 1e-5 and c > cnt_best)
+                or (abs(r - rate_best) < 1e-5 and c == cnt_best
+                    and e < err_best)):
+            cnt_best, err_best, rate_best, best = c, e, r, flat
+    tref = np.fromfile(os.path.join(RANSAC_DIR, "tbest_twin.bin")
+                       ).reshape(3, 3)
+    phi_b = float(aux["phi"][best])
+    t_b = aux["t"][best].numpy()
+    got_T = np.array([[math.cos(phi_b), -math.sin(phi_b), t_b[0]],
+                      [math.sin(phi_b), math.cos(phi_b), t_b[1]],
+                      [0.0, 0.0, 1.0]])
+    np.testing.assert_allclose(got_T, tref, atol=1e-9)

@@ -51,12 +51,15 @@ from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import window_replay
 from ohm_tsd_slam_tpu_torch.sensor import polar2d as tpolar
 from ohm_tsd_slam_tpu_torch.utils.testing import (
     field_arrays,
+    limit_cpu_threads,
     rect_walls,
     simulate_scan,
     sliver_field,
 )
 
 from golden_io import ROOM_BIN, Scenario, load_golden
+
+limit_cpu_threads()
 
 jsegment_layers = jax.jit(jrf._segment_layers)
 

@@ -35,11 +35,14 @@ from ohm_tsd_slam_tpu_torch.sensor import polar2d
 from ohm_tsd_slam_tpu_torch.utils.testing import (
     fence_segments,
     field_arrays,
+    limit_cpu_threads,
     noise_field,
     rect_walls,
     simulate_scan,
     sliver_field,
 )
+
+limit_cpu_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = GridConfig(map_size=8, cellsize=0.04)       # 256^2, 32x32 tiles

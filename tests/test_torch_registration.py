@@ -26,7 +26,13 @@ from ohm_tsd_slam_tpu_torch.registration import filters as tflt
 from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams, IcpState
 from ohm_tsd_slam_tpu_torch.registration.icp import icp as ticp
 from ohm_tsd_slam_tpu_torch.registration import nn as tnn
-from ohm_tsd_slam_tpu_torch.utils.testing import rect_walls, simulate_scan
+from ohm_tsd_slam_tpu_torch.utils.testing import (
+    limit_cpu_threads,
+    rect_walls,
+    simulate_scan,
+)
+
+limit_cpu_threads()
 
 GEOM = dict(size=541, angular_res=math.radians(0.5),
             phi_min=math.radians(-135.0), max_range=8.0,

@@ -24,10 +24,13 @@ from ohm_tsd_slam_tpu_torch.grid.state import create, from_arrays
 from ohm_tsd_slam_tpu_torch.sensor import polar2d
 from ohm_tsd_slam_tpu_torch.utils.testing import (
     field_arrays,
+    limit_cpu_threads,
     rect_walls,
     simulate_scan,
     sliver_field,
 )
+
+limit_cpu_threads()
 
 TWINS = rf.CasterKernels(
     rf.segment_layers_plain,

@@ -34,7 +34,13 @@ from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import (
     window_rounds,
 )
 from ohm_tsd_slam_tpu_torch.sensor import polar2d
-from ohm_tsd_slam_tpu_torch.utils.testing import field_arrays, sliver_field
+from ohm_tsd_slam_tpu_torch.utils.testing import (
+    field_arrays,
+    limit_cpu_threads,
+    sliver_field,
+)
+
+limit_cpu_threads()
 
 XYT = (2.0, 5.12, 0.3)
 
