@@ -62,12 +62,30 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       raycast_checked's ranges, pose and cell gradients against the CPU
       port within RENDER_TOL), and match_twinpoint and icp_multi_init on
       the TSD path's scene against the CPU port within TWIN_TOL;
+   e. the pose batch: raycast_fast_batch at P = 128 poses (bench.py's
+      spread) on the ICP path's grid, C, D and D's rounds (a cooperative
+      launch at 138,368 beams) launched once each and equal to their
+      twins, every pose's rows equal bit for bit to its own raycast_fast,
+      and the rounds with 16 replays a round on the batch's state against
+      their twin (the same drops, the same beams replayed); the
+      multi-robot step (parallel/sharded.py) on configs/double-laser.yaml's
+      settings, two robots, 20 ICP steps within 2.5 cells (one C, D and
+      rounds launch a step for both robots, the push once a robot), one
+      step each in the modes TSD and GN, one step's poses against the CPU
+      port within MULTI_TOL and its pose gradient, at one pose, within
+      RENDER_TOL; the command line as a subprocess (`python -m
+      ohm_tsd_slam_tpu_torch simulate` of configs/single-laser.yaml, then
+      `run` on the card): every output file, the printed trajectory error
+      within 2.5 cells, grid.npz equal to the text checkpoint of the same
+      grid;
 5. times: first a check that extract_segments, localize_step (in every
    mode) and the push wrapper make no host sync, then medians and
    quartiles of 25 runs after a warm-up, each printed beside the card's
    name and power limit, and the peak device memory of the caster's stages
    and of each matcher; the modes GN and AMCL, the render's forward and
-   backward, TwinPoint and multi-init are timed too.
+   backward, TwinPoint and multi-init are timed too, and at the batch's
+   shape raycast_fast_batch (wrapper, device, rays a second), C, D and the
+   rounds against their twins, and the multi-robot step.
 
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound on this card (the larger of the bytes the function
@@ -1902,6 +1920,460 @@ def slice_times(gn, amcl, main, twin_fns: dict, label: str) -> tuple:
                                     "localize_step (AMCL mode)": amcl_step}
 
 
+# the pose batch of the batch phase: bench.py's spread of 128 poses
+N_POSES = 128
+POSE_SPREAD = 0.05           # m and rad: d in linspace(-0.05, 0.05)
+BATCH_CAP = 16               # the rounds' capacity in the drop-order check
+STEPS_MULTI = 20             # multi-robot steps (ICP) on the double laser
+MULTI_TOL = 1e-4             # m: one step's poses, card against CPU
+# the CLI loop: 240 scans of `simulate` move the robot 8 cm and 1.5 deg a
+# scan around a 3.1 m circle; 60 scans move it 32 cm a scan, beyond the
+# 0.25 m registration gate of configs/single-laser.yaml (both packages
+# lose the loop there: 56 of 60 scans fail)
+CLI_STEPS = 240
+
+
+def pose_batch(pose, n=N_POSES):
+    """bench.py's batch (:337-345): `pose` composed with (d, -d, 2d) for
+    d in linspace(-POSE_SPREAD, POSE_SPREAD, n)."""
+    from ohm_tsd_slam_tpu_torch.core import se2
+
+    return torch.stack([
+        pose @ se2.make(d, -d, 2.0 * d, device=pose.device)
+        for d in np.linspace(-POSE_SPREAD, POSE_SPREAD, n).tolist()])
+
+
+def batch_check(node, label: str, total: dict) -> dict:
+    """raycast_fast_batch at P = 128 on the ICP path's grid (robot0's last
+    pose, cached segments): kernels C, D and D's rounds launched once each
+    (the rounds as a cooperative launch: 138,368 beams), each equal to its
+    twin, and every pose's rows equal bit for bit to its own raycast_fast;
+    then the rounds kernel and its twin with BATCH_CAP replays a round on
+    the batch's state, more beams needing a round than that: the same
+    drops, and the same beams replayed (every row compared)."""
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck
+    from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import (
+        window_rounds_blocks,
+    )
+
+    loc = node.localizers[0]
+    grid, geom = node.grid, loc.geom
+    poses = pose_batch(loc.pose.contiguous())
+    seg = node._segments_for(grid)
+    check = KernelCheck()
+    rounds_args: list = []
+
+    def grab(grid_, S, *rest):
+        rounds_args[:] = [grid_, S.clone(), *rest]
+        return check.kernels.window_rounds(grid_, S, *rest)
+
+    kernels = check.kernels._replace(window_rounds=grab)
+    reset_counts()
+    batch = rf.raycast_fast_batch(grid, geom, poses, segments=seg,
+                                  kernels=kernels)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    N = poses.shape[0] * geom.size
+    out = {"poses": poses.shape[0], "beams": N,
+           "rounds_blocks": window_rounds_blocks(N),
+           "n_dropped": int(batch.n_dropped),
+           "hits": int(batch.mask.sum()), "launches": launches,
+           "kernels": {n: check.stats[n] for n in
+                       ("segment_min", "window_replay", "window_rounds")}}
+    print(f"batch: raycast_fast_batch at P = {out['poses']} ({N} beams): "
+          f"{json.dumps(out)} [{label}]")
+    assert out["n_dropped"] == 0, out
+    assert out["rounds_blocks"] > 1, out          # the cooperative launch
+    assert {n: launches[n] for n in ("segment_min", "window_replay",
+                                     "window_rounds")} == {
+        "segment_min": 1, "window_replay": 1, "window_rounds": 1}, launches
+    assert launches["segment_layers"] == launches["pack_rows"] == 0
+    for name, st in out["kernels"].items():
+        assert st == {"calls": 1, "max_abs_err": 0.0}, (name, st)
+    merge_stats(total, check)
+
+    singles_equal = 0
+    for p in range(poses.shape[0]):
+        single = rf.raycast_fast(grid, geom, poses[p], segments=seg)
+        for name in ("coords", "normals", "mask", "ranges"):
+            assert torch.equal(getattr(batch, name)[p],
+                               getattr(single, name)), (p, name)
+        singles_equal += 1
+    print(f"batch: each of the {singles_equal} poses' rows equal to its own "
+          f"raycast_fast in every bit (coords, normals, mask, ranges)")
+
+    # the drop order: the first BATCH_CAP needing beams in beam order
+    check = KernelCheck()
+    g_, S, lev, *beams, cap = rounds_args
+    check.kernels.window_rounds(g_, S.clone(), lev, *beams, BATCH_CAP)
+    torch.cuda.synchronize()
+    ((_, _, forced),) = check.log
+    out["rounds_forced_overflow"] = dict(forced, cap=BATCH_CAP)
+    print(f"batch: rounds kernel with {BATCH_CAP} replays a round on the "
+          f"batch's state: {json.dumps(out['rounds_forced_overflow'])}")
+    assert forced["dropped"] > 0 and forced["finite"][0] > BATCH_CAP, forced
+    assert check.stats["window_rounds"] == {"calls": 1, "max_abs_err": 0.0}
+    merge_stats(total, check)
+    out["rounds_args"] = rounds_args
+    out["cap"] = cap
+    return out
+
+
+def multi_robot_inputs(gts, k, dev):
+    """The robots' scans at step k of their trajectories, masked, as
+    [R, B] tensors on the card (one geometry: robot0's 30 m laser)."""
+    from ohm_tsd_slam_tpu_torch.sensor.polar2d import standard_mask
+
+    geom = geom_1081(30.0)
+    pairs = [standard_mask(geom, torch.as_tensor(
+        scan_ranges(gt[k], 30.0), dtype=torch.float32, device=dev))
+        for gt in gts]
+    return (torch.stack([d for d, _ in pairs]),
+            torch.stack([m for _, m in pairs]))
+
+
+def multi_robot_path(dev, label: str, push_check):
+    """multi_robot_slam_step on configs/double-laser.yaml's settings: two
+    robots sharing the 1024^2 grid, ICP (25 iterations), robot0's 30 m
+    laser for both (the step takes one scan geometry, as the JAX
+    package's), STEPS_MULTI steps along the ICP path's trajectories, the
+    launch counts set to 0 before and read after (one C, one D and one
+    rounds launch a step for both robots, A and B once, the push once a
+    robot); then one step each in the modes TSD and GN, and one ICP step
+    on the card against the CPU port in float32.  The grid starts from
+    each robot's first scan pushed at its start pose, as the node starts."""
+    import dataclasses
+
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid.push import push
+    from ohm_tsd_slam_tpu_torch.grid.state import create
+    from ohm_tsd_slam_tpu_torch.parallel import (
+        multi_robot_slam_step,
+        pose_gradient,
+    )
+    from ohm_tsd_slam_tpu_torch.registration.ransac import RansacParams
+    from ohm_tsd_slam_tpu_torch.slam.localize import LocalizeParams
+
+    cfg = from_flat_params(DOUBLE_LASER)
+    geom = geom_1081(30.0)
+    rc = cfg.robots[0]
+    params = dataclasses.replace(
+        LocalizeParams.from_config(rc.registration, geom,
+                                   cell_size=cfg.grid.cellsize),
+        geom=geom)
+    assert params.mode == 0 and params.icp.iterations == 25
+    half = cfg.grid.size_meters * 0.5
+    starts = [(half + r.local_offset_x, half + r.local_offset_y,
+               r.local_offset_yaw) for r in cfg.robots]
+    gts = [trajectory(s, STEPS_MULTI + 1) for s in starts]
+    grid = create(cfg.grid, dtype=torch.float32, device=dev)
+    poses = torch.stack([se2.make(*gt[0], device=dev) for gt in gts])
+    data, mask = multi_robot_inputs(gts, 0, dev)
+    for r in range(len(gts)):
+        grid = push_check(grid, geom, poses[r], data[r], mask[r])
+    grid0, poses0 = grid, poses
+
+    reset_counts()
+    t0 = time.perf_counter()
+    errs = [[] for _ in gts]
+    for k in range(1, STEPS_MULTI + 1):
+        data, mask = multi_robot_inputs(gts, k, dev)
+        res = multi_robot_slam_step(grid, poses, data, mask, params, seed=k)
+        grid, poses = res.grid, res.poses
+        assert int(res.rays_dropped) == 0, k
+        assert not bool(res.reg_error.any()), (k, res.reg_error)
+        p = poses.cpu()
+        for r, gt in enumerate(gts):
+            errs[r].append(math.hypot(float(p[r, 0, 2]) - gt[k][0],
+                                      float(p[r, 1, 2]) - gt[k][1]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    limit = 2.5 * cfg.grid.cellsize
+    print(f"multi-robot step (ICP, 2 robots): {STEPS_MULTI} steps, max "
+          f"|pose - truth| {max(errs[0]):.6f} / {max(errs[1]):.6f} m (limit "
+          f"{limit} m), rays_dropped 0 on each; kernel launches "
+          f"{json.dumps(launches)}; {wall:.3f} s [{label}]")
+    for r in range(len(gts)):
+        assert max(errs[r]) < limit, (r, max(errs[r]))
+    assert launches["segment_min"] == launches["window_replay"] == \
+        launches["window_rounds"] == STEPS_MULTI, launches
+    assert launches["segment_layers"] == launches["pack_rows"] == \
+        STEPS_MULTI, launches
+    assert launches["push"] == 2 * STEPS_MULTI, launches
+    assert launches["compact_channels"] == 0, launches
+    out = {"errs": [max(e) for e in errs], "launches": launches,
+           "grid": grid, "poses": poses, "params": params, "gts": gts}
+
+    # one step each in the modes TSD and GN from the path's last state
+    data, mask = multi_robot_inputs(gts, STEPS_MULTI, dev)
+    for mode, name in ((3, "TSD"), (4, "GN")):
+        p = dataclasses.replace(
+            params, mode=mode,
+            ransac=RansacParams.from_config(
+                from_flat_params(SINGLE_LASER).robots[0].registration.ransac,
+                geom.angular_res))
+        reset_counts()
+        res = multi_robot_slam_step(grid, poses, data, mask, p, seed=7)
+        torch.cuda.synchronize()
+        la = read_counts()
+        moved = float((res.poses - poses)[:, :2, 2].abs().max())
+        print(f"multi-robot step ({name}, 2 robots): reg_error "
+              f"{res.reg_error.tolist()}, largest move {moved:.6f} m, pose "
+              f"gradients finite: {bool(torch.isfinite(res.pose_grad).all())}"
+              f"; kernel launches {json.dumps(la)} [{label}]")
+        assert not bool(res.reg_error.any()), (name, res.reg_error)
+        assert bool(torch.isfinite(res.poses).all()), name
+        assert moved < limit, (name, moved)
+        assert la["push"] == 2, la
+        rendered = 0 if mode == 4 else 1
+        assert la["segment_min"] == la["window_replay"] == \
+            la["window_rounds"] == rendered, la
+
+    # one ICP step on the card against the same step of the CPU port
+    data, mask = multi_robot_inputs(gts, 1, dev)
+    card = multi_robot_slam_step(grid0, poses0, data, mask, params)
+    cpu_grid = dataclasses.replace(grid0, **{
+        f: getattr(grid0, f).cpu()
+        for f in ("tsd", "weight", "tile_init", "tile_initw")})
+    cpu = multi_robot_slam_step(cpu_grid, poses0.cpu(), data.cpu(),
+                                mask.cpu(), params)
+    # the gradients of the step are taken at poses 4e-5 m apart; the
+    # gradient itself is held at one pose (the card's), as a share of its
+    # largest magnitude, with the render's tolerance
+    grad_card = torch.stack([
+        pose_gradient(grid0, geom, card.poses[r], data[r], mask[r])
+        for r in range(2)]).cpu()
+    grad_cpu = torch.stack([
+        pose_gradient(cpu_grid, geom, card.poses[r].cpu(), data[r].cpu(),
+                      mask[r].cpu()) for r in range(2)])
+    gap = {"poses": float((card.poses.cpu() - cpu.poses).abs().max()),
+           "step_pose_grad": float(
+               ((card.pose_grad.cpu() - cpu.pose_grad).abs()
+                / cpu.pose_grad.abs().max()).max()),
+           "pose_grad_same_pose": float(
+               ((grad_card - grad_cpu).abs() / grad_cpu.abs().max()).max()),
+           "tsd_nan_mismatch": int((card.grid.tsd.isnan().cpu()
+                                    != cpu.grid.tsd.isnan()).sum())}
+    print(f"multi-robot step card against CPU (float32, one ICP step): "
+          f"{json.dumps(gap)} (poses within {MULTI_TOL} m, the gradient at "
+          f"one pose within {RENDER_TOL} of its largest magnitude) [{label}]")
+    assert torch.equal(card.reg_error.cpu(), cpu.reg_error)
+    assert gap["poses"] < MULTI_TOL, gap
+    assert gap["pose_grad_same_pose"] < RENDER_TOL, gap
+    out["card_cpu_gap"] = gap
+    return out
+
+
+def cli_path(label: str) -> dict:
+    """The command line as its users start it: `python -m
+    ohm_tsd_slam_tpu_torch simulate` of configs/single-laser.yaml at 1081
+    beams, then `run` on the card, each a subprocess in a temporary
+    folder.  Every output file exists, the printed trajectory error is
+    within 2.5 cells, and grid.npz holds the grid the run ended with: it
+    equals, value for value, the reference-format text checkpoint written
+    from the same grid (--store-text)."""
+    import re
+    import tempfile
+
+    from ohm_tsd_slam_tpu_torch.grid.checkpoint import load_npz, load_text
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = os.path.join(root, "configs", "single-laser.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        scans = os.path.join(tmp, "scans.npz")
+        out_dir = os.path.join(tmp, "out")
+        cmds = [["simulate", "--config", cfg, "--beams", str(BEAMS),
+                 "--steps", str(CLI_STEPS), "--out", scans],
+                ["run", scans, "--config", cfg, "--out", out_dir,
+                 "--store-text"]]
+        printed = []
+        t0 = time.perf_counter()
+        for args in cmds:
+            proc = subprocess.run(
+                [sys.executable, "-m", "ohm_tsd_slam_tpu_torch", *args],
+                cwd=root, capture_output=True, text=True, timeout=600)
+            print(f"cli {args[0]}: rc {proc.returncode}\n{proc.stdout}"
+                  + (proc.stderr[-2000:] if proc.returncode else ""))
+            assert proc.returncode == 0, (args[0], proc.stderr[-2000:])
+            printed.append(proc.stdout)
+        wall = time.perf_counter() - t0
+        names = ("trajectory.csv", "map.pgm", "map_color.ppm", "grid.npz",
+                 "grid_store.txt")
+        for name in names:
+            assert os.path.exists(os.path.join(out_dir, name)), name
+        err = re.search(r"trajectory error vs ground truth: mean (\S+) m, "
+                        r"max (\S+) m", printed[1])
+        median = re.search(r"process_scan on (\S+): median (\S+) ms",
+                           printed[1])
+        g = load_npz(os.path.join(out_dir, "grid.npz"))
+        t = load_text(os.path.join(out_dir, "grid_store.txt"))
+        rows = open(os.path.join(out_dir, "trajectory.csv")).read()
+    limit = 2.5 * 0.025
+    out = {"scans": CLI_STEPS, "mean_err": float(err.group(1)),
+           "max_err": float(err.group(2)), "device": median.group(1),
+           "per_scan_median_ms": float(median.group(2)),
+           "trajectory_rows": rows.count("\n") - 1, "seconds": wall}
+    print(f"cli: {json.dumps(out)} (limit {limit} m) [{label}]")
+    assert out["device"].startswith("cuda"), out
+    assert out["max_err"] < limit, out
+    assert out["trajectory_rows"] == CLI_STEPS - 1, out
+    for f in ("tsd", "weight", "tile_init"):
+        a, b = getattr(g, f), getattr(t, f)
+        assert torch.equal(a.isnan(), b.isnan()) if a.is_floating_point() \
+            else True, f
+        assert torch.equal(a.nan_to_num(), b.nan_to_num()), f
+    # the text stores a tile's emptiness weight only while it has no cells,
+    # and its reader clamps it at the maximum weight (TsdGrid.cpp:84-85)
+    empty = ~g.tile_init
+    assert torch.equal(g.tile_initw[empty].clamp(max=t.max_weight),
+                       t.tile_initw[empty])
+    assert int(g.tile_init.sum()) > 100
+    return out
+
+
+CROSSOVER_POSES = (1, 2, 3, 4, 8)    # 1081 to 8648 beams
+
+
+def rounds_crossover(rounds, rounds_args: list, beams_per_pose: int) -> dict:
+    """The rounds kernel on the first P poses' beams of the batch's state
+    (P in CROSSOVER_POSES, the caster's capacity for that many beams), in
+    one block and in a cooperative launch of a block for each
+    ROUNDS_THREADS beams: both give every row and the drop count alike,
+    and their device times (each after a copy of the state, which both
+    pay) say where ONE_BLOCK_BEAMS should lie."""
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import ROUNDS_THREADS
+
+    g_, S0, lev, ray, idx_min, idx_max, tr, _ = rounds_args
+    t = {}
+    for p in CROSSOVER_POSES:
+        n = p * beams_per_pose
+        cap = rf.unresolved_cap(n)
+        args = (lev[:n], ray[:n], idx_min[:n], idx_max[:n], tr[:p], cap)
+        S_n = S0[:n].clone()
+        S_work = S_n.clone()
+        rows = {}
+        for blocks in (1, -(-n // ROUNDS_THREADS)):
+            got, dropped = rounds(g_, S_n.clone(), *args, blocks=blocks)
+            rows[blocks] = (got, int(dropped))
+            t[f"rounds crossover: {n} beams, {blocks} block(s) (device "
+              f"time after a copy of the state, replayed from a CUDA "
+              f"graph)"] = time_device(
+                lambda: (S_work.copy_(S_n),
+                         rounds(g_, S_work, *args, blocks=blocks)), reps=4)
+        (one, d_one), (coop, d_coop) = rows.values()
+        # bit for bit (a row's normal is NaN where it has none)
+        assert torch.equal(one.view(torch.int32), coop.view(torch.int32)) \
+            and d_one == d_coop, (n, d_one, d_coop)
+    return t
+
+
+def batch_times(node, batch: dict, multi: dict, label: str) -> tuple:
+    """Times at the batch shape (P = 128 on the ICP path's grid): the
+    whole raycast_fast_batch (wrapper time and device time, and rays a
+    second), kernels C, D and D's rounds alone against their twins, each
+    wrapper's time and device time; the multi-robot step per step.
+    Returns the medians and the facts the bounds need."""
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.raycast import beam_geometry_batch
+    from ohm_tsd_slam_tpu_torch.parallel import multi_robot_slam_step
+
+    loc = node.localizers[0]
+    grid, geom = node.grid, loc.geom
+    poses = pose_batch(loc.pose.contiguous())
+    seg = node._segments_for(grid)
+    ks = caster_wrappers()
+    t = {}
+    t["raycast_fast_batch (P=128, cached segments)"] = time_cuda(
+        lambda: rf.raycast_fast_batch(grid, geom, poses, segments=seg))
+    t["raycast_fast_batch device time (P=128, replayed from a CUDA "
+      "graph)"] = time_device(
+        lambda: rf.raycast_fast_batch(grid, geom, poses, segments=seg),
+        reps=4)
+
+    ray, tr, idx_min, idx_max, feasible = beam_geometry_batch(grid, geom,
+                                                              poses)
+    N = ray.shape[0] * ray.shape[1]
+    ray, idx_min, idx_max, feasible = (ray.reshape(N, 2), idx_min.reshape(N),
+                                       idx_max.reshape(N), feasible.reshape(N))
+    lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
+    hi = torch.ceil(idx_max) + 1.0
+    tr_pack = (tr - seg.origin).contiguous()
+    cargs = (seg.pack, seg.count, ray, lo, hi, lo, tr_pack)
+    t["C segment_min kernel (batch P=128, K=4)"] = time_cuda(
+        lambda: ks["segment_min"](*cargs, rf.ROUNDS, rf.COVER))
+    t["C segment_min plain (batch P=128, K=4)"] = time_cuda(
+        lambda: rf.segment_min_plain(*cargs, rf.ROUNDS, rf.COVER), n=5,
+        warmup=1)
+    t["C segment_min device time (batch P=128, K=4, replayed from a CUDA "
+      "graph)"] = time_device(
+        lambda: ks["segment_min"](*cargs, rf.ROUNDS, rf.COVER), reps=4)
+    lev = ks["segment_min"](*cargs, rf.ROUNDS, rf.COVER)
+    has = torch.isfinite(lev[:, 0]) & feasible
+    k_1 = torch.where(has, lev[:, 0], 0.0)
+    dargs = (grid, k_1, ray, idx_min, idx_max, has, tr.contiguous())
+    t["D window_replay kernel (batch P=128)"] = time_cuda(
+        lambda: ks["window_replay"](*dargs))
+    t["D window_replay plain (batch P=128)"] = time_cuda(
+        lambda: rf.window_replay_plain(*dargs), n=5, warmup=1)
+    t["D window_replay device time (batch P=128, replayed from a CUDA "
+      "graph)"] = time_device(lambda: ks["window_replay"](*dargs), reps=4)
+
+    g_, S0, lev_r, *beams, cap = batch["rounds_args"]
+    fresh = iter([S0.clone() for _ in range(N_TIMED + 3)])
+    t["D window_rounds kernel (batch P=128)"] = time_cuda(
+        lambda: ks["window_rounds"](g_, next(fresh), lev_r, *beams, cap))
+    t["D window_rounds plain (batch P=128)"] = time_cuda(
+        lambda: rf.window_rounds_plain(g_, S0, lev_r, *beams, cap), n=5,
+        warmup=1)
+    S_work = S0.clone()
+    t["D window_rounds device time (batch P=128, after a copy of the "
+      "state, replayed from a CUDA graph)"] = time_device(
+        lambda: (S_work.copy_(S0),
+                 ks["window_rounds"](g_, S_work, lev_r, *beams, cap)),
+        reps=4)
+    t["D window_rounds state copy alone (batch P=128, replayed from a CUDA "
+      "graph)"] = time_device(lambda: S_work.copy_(S0), reps=4)
+    t.update(rounds_crossover(ks["window_rounds"], batch["rounds_args"],
+                              geom.size))
+    # a beam needs a later round while it is unresolved and has a candidate
+    # there (at most these replay; a beam that resolves stops needing)
+    unresolved = S0[:, 1] == 0
+    needing = [int(n) for n in
+               (torch.isfinite(lev_r) & unresolved[:, None]).sum(0)]
+    print(f"batch rounds: unresolved beams with a candidate in rounds 2-4 "
+          f"{needing}, unresolved after round 1 {int(unresolved.sum())} "
+          f"(capacity {cap})")
+
+    cfg_grid, poses_m = multi["grid"], multi["poses"]
+    data, mask = multi_robot_inputs(multi["gts"], STEPS_MULTI,
+                                    poses_m.device)
+    t["multi_robot_slam_step (2 robots, ICP; CUDA events around the step, "
+      "which reads the drop count once)"] = time_cuda(lambda: multi_robot_slam_step(
+        cfg_grid, poses_m, data, mask, multi["params"], seed=1), n=10)
+    medians = report_times(t, label)
+    rays = N / (medians["raycast_fast_batch (P=128, cached segments)"]
+                * 1e-3)
+    rays_dev = N / (medians["raycast_fast_batch device time (P=128, "
+                            "replayed from a CUDA graph)"] * 1e-3)
+    print(f"raycast_fast_batch: {rays:,.0f} rays/s by the wrapper, "
+          f"{rays_dev:,.0f} rays/s by the device time (P=128, {N} beams) "
+          f"[{label}]")
+    facts = {"batch_beams": N, "batch_poses": poses.shape[0],
+             "batch_rounds_needing": sum(needing), "rays_per_s": rays,
+             "rays_per_s_device": rays_dev}
+    return medians, facts
+
+
+# the batch's times of C, D and D's rounds in the kernels line: (tag, the
+# shape's suffix in batch_times' keys)
+BATCH_KEYS = {"segment_min": ("C", ", K=4"), "window_replay": ("D", ""),
+              "window_rounds": ("D", "")}
+
+
 def kernel_bounds(facts: dict) -> dict:
     """name -> (bound_ms, bound_by): the least time this card could take
     for each kernel's work at the inputs of this run's timed call, the
@@ -1912,9 +2384,16 @@ def kernel_bounds(facts: dict) -> dict:
     from the sources, roughly."""
     beams = BEAMS
     cells = CELLS * CELLS
+
+    def taps(n_replays):
+        # 8 samples + 4 normal taps of 4 cells a replay, but the field
+        # once at most: the replays of nearby poses read the same cells
+        return min(n_replays * 12 * 16, cells * 4)
+
     rows = 4 * cells // 128
     cap = 32768 + 128
     segs = facts["segments"]
+    nb = facts["batch_beams"]
     work = {
         # out of place: tsd and weight of the whole grid read and written
         # (an inactive tile is copied through), the ranges and their mask,
@@ -1939,14 +2418,15 @@ def kernel_bounds(facts: dict) -> dict:
                         + beams * 4 * facts["sweep_levels"],
                         beams * segs * 20
                         + beams * (facts["sweep_levels"] - 1)),
-        # round 1: 8 samples + 4 normal taps of 4 cells a beam, 7 values
-        # in, 8 out; ~25 operations a tap
-        "window_replay": (beams * (12 * 16 + 28 + 32), beams * 12 * 25),
+        # round 1: the taps (above), 7 values in a beam, 8 out; ~25
+        # operations a tap
+        "window_replay": (taps(beams) + beams * (28 + 32), beams * 12 * 25),
         # the rounds: a beam's candidates and its resolved flag read, the
         # flag written; a replay (taps, 5 values in, a row out) for each
         # beam with a candidate in this run; ~6 operations a beam a round
         "window_rounds": (beams * (facts["rounds"] * 4 + 8)
-                          + facts["rounds_needing"] * (12 * 16 + 20 + 32),
+                          + taps(facts["rounds_needing"])
+                          + facts["rounds_needing"] * (20 + 32),
                           beams * facts["rounds"] * 6
                           + facts["rounds_needing"] * 12 * 25),
         # main-path shape: the bool mask read, 4 values a set lane, the
@@ -1956,6 +2436,17 @@ def kernel_bounds(facts: dict) -> dict:
                              facts["narrow_lanes"]),
         "compact_channels_large": (facts["lanes"] + segs * 16 + 5 * cap * 4,
                                    facts["lanes"]),
+        # the same three at the batch's shape (P = 128 folded into the
+        # beams; one translation row a pose instead of one a scan)
+        "segment_min_batch": (segs * 32 + nb * 20 + nb * 4 * 4
+                              + facts["batch_poses"] * 8,
+                              nb * segs * 20 + nb * 3),
+        "window_replay_batch": (taps(nb) + nb * (20 + 32), nb * 12 * 25),
+        "window_rounds_batch": (nb * (facts["rounds"] * 4 + 8)
+                                + taps(facts["batch_rounds_needing"])
+                                + facts["batch_rounds_needing"] * (20 + 32),
+                                nb * facts["rounds"] * 6
+                                + facts["batch_rounds_needing"] * 12 * 25),
     }
     out = {}
     for name, (n_bytes, n_ops) in work.items():
@@ -1975,6 +2466,7 @@ def main() -> int:
     from ohm_tsd_slam_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
+    t_all = time.perf_counter()
     # 1. device
     label = card_label()
     print(f"nvidia-smi name, power.limit: {label}")
@@ -2042,6 +2534,11 @@ def main() -> int:
     odom_path(dev, label, push_check)
     render_check(node, label)
     twin_fns = twin_multi_check(tsd_node, label)
+    # 4e. the pose batch (P = 128) on the ICP path's grid; the multi-robot
+    # step on the double laser's settings; the command line
+    batch = batch_check(node, label, caster_stats)
+    multi = multi_robot_path(dev, label, push_check)
+    cli = cli_path(label)
     print(f"kernel check caster, every call: {json.dumps(caster_stats)}")
     # every push of the kernel check and of the five paths: PushCheck
     # raises on the first tile that disagrees, so the counts below are 0
@@ -2061,6 +2558,12 @@ def main() -> int:
     more, steps = slice_times(gn_node, amcl_node, node, twin_fns, label)
     times.update(more)
     facts.update(more_facts)
+    more, more_facts = batch_times(node, batch, multi, label)
+    times.update(more)
+    facts.update(more_facts)
+    print(f"cli run: process_scan median {cli['per_scan_median_ms']:.4f} ms "
+          f"a scan over {cli['scans'] - 1} scans (host clock, printed by the "
+          f"run), max |pose - truth| {cli['max_err']:.6f} m [{label}]")
     bounds = kernel_bounds(facts)
     device_kernel_counts(node, label, steps)
 
@@ -2108,6 +2611,21 @@ def main() -> int:
             extra["state_copy_device_ms"] = times[
                 "D window_rounds state copy alone (replayed from a CUDA "
                 "graph)"]
+        if name in BATCH_KEYS:
+            # the same kernel at the pose batch's shape (P = 128)
+            tag, shape = BATCH_KEYS[name]
+            key_b = f"{tag} {name} kernel (batch P=128{shape})"
+            extra.update(
+                batch_launches=batch["launches"][name],
+                launches_multi_robot_path=multi["launches"][name],
+                batch_ms=times[key_b],
+                batch_plain_ms=times[key_b.replace(" kernel", " plain")],
+                batch_device_ms=next(
+                    times[k] for k in times
+                    if k.startswith(f"{tag} {name} device time (batch")),
+                batch_bound_ms=bounds[f"{name}_batch"][0],
+                batch_bound_by=bounds[f"{name}_batch"][1],
+                batch_max_abs_err=batch["kernels"][name]["max_abs_err"])
         if name == "pack_rows":
             library = "B pack_rows library (masked_select of 4 dense channels)"
         if name == "compact_channels":
@@ -2154,6 +2672,8 @@ def main() -> int:
               f"bound {k['bound_ms']:.6f} ms by {k['bound_by']} "
               f"({k['bound_ms'] / own:.2%} of {own:.4f} ms), plain "
               f"{k['plain_ms']:.4f} ms, library {library} [{label}]")
+    print(f"chip_smoke.py whole run: {time.perf_counter() - t_all:.1f} s, "
+          f"the kernels' build included [{label}]")
     print(f"nvidia-smi name, power.limit: {label}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

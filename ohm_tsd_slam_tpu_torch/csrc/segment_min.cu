@@ -44,6 +44,12 @@
 // per candidate after; the device count is read on the device, so the launch
 // never waits on the host.
 //
+// A pose batch folds into the beam axis (grid/raycast_fast.py::
+// raycast_fast_batch): `tr` is a table of P translations and beam b reads
+// row b / beams_per_pose, so a pose's beams are consecutive blocks.  One
+// scan is the table of one row.  A beam's arithmetic does not depend on
+// where its translation came from, so a batch equals its scans bit for bit.
+//
 // Built with -fmad=false and IEEE division (ops/_build.py): t and u must
 // equal the twin's bit for bit.
 
@@ -123,7 +129,7 @@ __global__ void __launch_bounds__(kLanes)
                        const float* __restrict__ hi,
                        const float* __restrict__ t_after,
                        const float* __restrict__ tr, float* __restrict__ out,
-                       int levels, float cover) {
+                       int levels, float cover, int beams_per_pose) {
   __shared__ float kept[kCache];
   __shared__ int n_kept;
   __shared__ float warp_best[2][kWarps];  // by the level's parity
@@ -140,8 +146,9 @@ __global__ void __launch_bounds__(kLanes)
     Beam beam;
     beam.rayx = ray[2 * b];
     beam.rayy = ray[2 * b + 1];
-    beam.trx = tr[0];
-    beam.try_ = tr[1];
+    const float* origin = tr + 2 * (b / beams_per_pose);
+    beam.trx = origin[0];
+    beam.try_ = origin[1];
     beam.c1tr = beam.rayx * beam.try_ - beam.rayy * beam.trx;  // cross(ray, tr)
     beam.lo = lo[b];
     beam.hi = hi[b];
@@ -182,17 +189,22 @@ __global__ void __launch_bounds__(kLanes)
 }  // namespace
 
 // pack [8, S] float32; count: one int32 (valid segments, first in the pack);
-// ray [B, 2]; lo, hi, t_after [B]; tr [2] (sensor translation in the pack's
-// frame); out [B, levels] float32.  All on the device, one launch on
-// `stream` for every level.  Returns the first cudaError_t.
+// ray [B, 2]; lo, hi, t_after [B]; tr [B / beams_per_pose, 2] (sensor
+// translations in the pack's frame, a row for each pose); out [B, levels]
+// float32.  All on the device, one launch on `stream` for every level.
+// Returns the first cudaError_t.
 extern "C" int segment_min_f32(const float* pack, int S, const int* count,
                                const float* ray, const float* lo,
                                const float* hi, const float* t_after,
                                const float* tr, float* out, int B,
-                               int levels, float cover, void* stream) {
+                               int levels, float cover, int beams_per_pose,
+                               void* stream) {
   if (B <= 0 || levels <= 0) return 0;
+  if (beams_per_pose <= 0 || B % beams_per_pose != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   segment_min_kernel<<<B, kLanes, 0, st>>>(pack, S, count, ray, lo, hi,
-                                           t_after, tr, out, levels, cover);
+                                           t_after, tr, out, levels, cover,
+                                           beams_per_pose);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,31 +30,44 @@
 // writes only tiles it touches, and initializes them), so its blend is NaN
 // all the same.
 //
-// The rounds (grid/raycast_fast.py::window_rounds_plain) are one block: a
-// beam's rank among the beams that need a round counts every lower beam,
-// and round r + 1 reads round r's resolved flags of every beam, so the
-// rounds are separated by block-wide barriers.  Per round the block's
-// threads stride the beams, scan `need` (a ballot per warp, the warps'
-// counts through shared memory, a running total across strides), list the
-// first `cap` needing beams in shared memory and mark the others resolved;
-// then the lane groups replay the listed beams and overwrite, in place,
-// the rows of those that found an event.  No compaction arrays, no gather,
-// no scatter.  One block is enough for a single scan (1081 beams: two
-// strides a round, and a handful of listed beams at most).  For a pose
-// batch folded into the beam axis the strides grow with N (tens of
-// thousands of beams: tens of strides of two barriers each, a round then
-// costs tens of microseconds on one SM); a grid-wide version would scan
-// with a cooperative launch or one launch per round.  The sensor
-// translation is read in one place (sensor_origin) so that a batch can give
-// each beam its own row.
+// The rounds (grid/raycast_fast.py::window_rounds_plain): a beam's rank
+// among the beams that need a round counts every lower beam, because the
+// first `cap` needing beams in beam order are replayed and the rest are
+// dropped (the twin's compact_mask); and round r + 1 reads round r's
+// resolved flags of every beam.  So each round lists by a prefix sum, not an
+// atomic append, and the rounds are separated by barriers over every
+// thread that takes part.  Per round the threads stride the beams, scan
+// `need` (a ballot per warp, the warps' counts through shared memory, a
+// running total across strides), list the first `cap` needing beams and mark
+// the others resolved; then the lane groups replay the listed beams and
+// overwrite, in place, the rows of those that found an event.  No compaction
+// arrays, no gather, no scatter.
+//
+// Up to ops/window_replay_cuda.py::ONE_BLOCK_BEAMS beams (a scan, or a few
+// robots' scans) this is one block: the list lies in shared memory and the
+// barriers are __syncthreads.  A pose batch folded into the beam axis (128
+// scans are 138,368 beams: 136 strides a round on one SM) takes a
+// cooperative launch of a block a 1024 beams, at most as many as are
+// resident at once, each owning a consecutive chunk of beams: a block
+// counts its chunk's needing beams, a grid barrier,
+// each block adds the counts of the blocks before it (the exclusive prefix
+// over chunks, so ranks stay in beam order), lists its chunk from there into
+// a list in global memory, a grid barrier, the blocks share out the listed
+// replays, a grid barrier.  Three grid barriers a round, one launch a call.
+//
+// A pose batch gives each pose its own sensor translation: `tr` is a table
+// of P rows and beam b reads row b / beams_per_pose (sensor_origin).
 //
 // Bound.  Latency: 32 tap loads a beam from L2, then 16 for the normal.
 //
 // Built with -fmad=false and IEEE division and sqrt (ops/_build.py): the
 // samples, and so the events, must equal the twin's bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -96,11 +109,13 @@ __device__ __forceinline__ float bilinear(const Field& g, float px,
          v01 * (1.0f - wy) * wx + v11 * wy * wx;
 }
 
-// the sensor translation of `beam` (world frame): one row for all beams of
-// a scan; a pose batch folded into the beam axis would index it by beam
+// the sensor translation of `beam` (world frame): row beam / beams_per_pose
+// of the table (one row for all beams of a scan)
 __device__ __forceinline__ float2 sensor_origin(const float* __restrict__ tr,
-                                                int /*beam*/) {
-  return make_float2(tr[0], tr[1]);
+                                                int beam,
+                                                int beams_per_pose) {
+  const float* o = tr + 2 * (beam / beams_per_pose);
+  return make_float2(o[0], o[1]);
 }
 
 // column j of a beam's row, and whether the window held an event
@@ -182,7 +197,8 @@ __global__ void window_replay_kernel(Field g, const float* __restrict__ k,
                                      const float* __restrict__ idx_max,
                                      const bool* __restrict__ active,
                                      const float* __restrict__ tr,
-                                     float* __restrict__ out, int N) {
+                                     float* __restrict__ out, int N,
+                                     int beams_per_pose) {
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   const int beam = gid / kWindow;
   const int j = gid % kWindow;
@@ -191,38 +207,91 @@ __global__ void window_replay_kernel(Field g, const float* __restrict__ k,
   const bool act = in_range && active[b];
   const Column col =
       replay_column(g, act, k[b], idx_min[b], idx_max[b], ray[2 * b],
-                    ray[2 * b + 1], sensor_origin(tr, b), j);
+                    ray[2 * b + 1], sensor_origin(tr, b, beams_per_pose), j);
   if (in_range) out[static_cast<long>(gid)] = act ? col.value : 0.0f;
 }
 
-// Rounds 2..ROUNDS on the per-beam state S [N, 8], in place; one block.
-// lev [N, n_rounds] with `lev_stride` floats between beams: round r's
-// candidate per beam (inf = none).
+// The sum over the block of every thread's `v`, in every thread.  `scratch`
+// holds a word a warp; the call begins and ends with a barrier, so the
+// scratch may be used again at once.
+__device__ __forceinline__ int block_sum(int v, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  int sum = 0;
+  for (int w = 0; w < kRoundsThreads / 32; ++w) sum += scratch[w];
+  __syncthreads();
+  return sum;
+}
+
+// Whether beam b needs round r: a finite candidate and not resolved.  S is
+// written during the launch (by other blocks too), so it is read through a
+// plain pointer: a const __restrict__ one would let the compiler read it
+// through the non-coherent read-only cache.
+__device__ __forceinline__ bool needs_round(const float* S,
+                                            const float* __restrict__ lev,
+                                            int b, int r, int lev_stride) {
+  return isfinite(lev[static_cast<long>(b) * lev_stride + r]) &&
+         !(S[static_cast<long>(b) * 8 + 1] > 0.0f);
+}
+
+// Rounds 2..ROUNDS on the per-beam state S [N, 8], in place.  lev
+// [N, n_rounds] with `lev_stride` floats between beams: round r's candidate
+// per beam (inf = none).  One block, or (gridDim.x > 1) a cooperative launch
+// whose block k owns beams [k * chunk, (k + 1) * chunk); `scratch` then
+// holds the list [cap] and a count a block.
 __global__ void __launch_bounds__(kRoundsThreads)
-    window_rounds_kernel(Field g, float* __restrict__ S,
-                         const float* __restrict__ lev,
+    window_rounds_kernel(Field g, float* S, const float* __restrict__ lev,
                          const float* __restrict__ ray,
                          const float* __restrict__ idx_min,
                          const float* __restrict__ idx_max,
                          const float* __restrict__ tr, int N, int n_rounds,
-                         int lev_stride, int cap,
+                         int lev_stride, int cap, int beams_per_pose,
+                         int chunk, int* scratch,
                          long long* __restrict__ dropped_out) {
-  extern __shared__ int listed[];          // [cap]: the beams to replay
+  extern __shared__ int shared_list[];     // [cap] in one block
   __shared__ int warp_count[kRoundsThreads / 32];
+  const bool grid_wide = gridDim.x > 1;    // uniform over the launch
+  int* listed = grid_wide ? scratch : shared_list;
+  int* block_count = scratch + cap;        // grid-wide only
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int b_begin = blockIdx.x * chunk;
+  const int b_end = min(N, b_begin + chunk);
   int dropped = 0;                         // the same in every thread
 
   for (int r = 0; r < n_rounds; ++r) {
-    // ---- which beams need this round, and their rank ----
-    int total = 0;                         // needing beams below this stride
-    for (int b0 = 0; b0 < N; b0 += kRoundsThreads) {
+    // ---- the needing beams before this block's chunk, and in all ----
+    int total = 0;                         // needing beams below the stride
+    int total_all = 0;
+    if (grid_wide) {
+      int mine = 0;
+      for (int b = b_begin + tid; b < b_end; b += kRoundsThreads)
+        mine += needs_round(S, lev, b, r, lev_stride);
+      mine = block_sum(mine, warp_count);
+      if (tid == 0) block_count[blockIdx.x] = mine;
+      cg::this_grid().sync();
+      int before = 0, all = 0;
+      for (int k = tid; k < gridDim.x; k += kRoundsThreads) {
+        const int c = block_count[k];
+        all += c;
+        if (k < blockIdx.x) before += c;
+      }
+      total = block_sum(before, warp_count);
+      total_all = block_sum(all, warp_count);
+    }
+
+    // ---- which beams of the chunk need this round, and their rank ----
+    for (int b0 = b_begin; b0 < b_end; b0 += kRoundsThreads) {
       const int b = b0 + tid;
       bool need = false;
-      if (b < N) {
-        need = isfinite(lev[static_cast<long>(b) * lev_stride + r]) &&
-               !(S[static_cast<long>(b) * 8 + 1] > 0.0f);
+      if (b < b_end) {
+        need = needs_round(S, lev, b, r, lev_stride);
         // a beam that does not need the round is resolved from here on
         if (!need)
           S[static_cast<long>(b) * 8 + 1] =
@@ -242,64 +311,109 @@ __global__ void __launch_bounds__(kRoundsThreads)
       total += stride_count;
       __syncthreads();                     // warp_count is reused
     }
-    const int n_listed = min(total, cap);
-    dropped += max(total - cap, 0);
+    if (!grid_wide) total_all = total;
+    const int n_listed = min(total_all, cap);
+    dropped += max(total_all - cap, 0);
+    if (grid_wide) cg::this_grid().sync();  // the list, before the replays
 
     // ---- replay the listed beams, 8 lanes a beam ----
-    for (int e0 = 0; e0 < n_listed; e0 += kRoundsThreads / kWindow) {
+    constexpr int kSlots = kRoundsThreads / kWindow;  // beams a block a pass
+    for (int e0 = blockIdx.x * kSlots; e0 < n_listed;
+         e0 += gridDim.x * kSlots) {
       const int e = e0 + tid / kWindow;
       const int j = tid % kWindow;
       const bool act = e < n_listed;
       const int b = act ? listed[e] : 0;
       const Column col = replay_column(
           g, act, lev[static_cast<long>(b) * lev_stride + r], idx_min[b],
-          idx_max[b], ray[2 * b], ray[2 * b + 1], sensor_origin(tr, b), j);
+          idx_max[b], ray[2 * b], ray[2 * b + 1],
+          sensor_origin(tr, b, beams_per_pose), j);
       if (act && col.any_ev) S[static_cast<long>(b) * 8 + j] = col.value;
     }
-    __syncthreads();                       // the rows, before the next scan
+    // the rows, before the next round's scan
+    if (grid_wide)
+      cg::this_grid().sync();
+    else
+      __syncthreads();
   }
-  if (tid == 0) *dropped_out = dropped;  // at most N a round
+  if (blockIdx.x == 0 && tid == 0) *dropped_out = dropped;  // <= N a round
 }
 
 }  // namespace
 
 // Round 1.  tsd [H, W] float32; k (the candidate step), idx_min, idx_max
-// [N]; ray [N, 2]; active [N] bool; tr [2] (sensor translation, world
-// frame); out [N, 8] float32.  All on the device, launched on `stream`.
-// Returns the cudaError_t of the launch.
+// [N]; ray [N, 2]; active [N] bool; tr [N / beams_per_pose, 2] (sensor
+// translations, world frame, a row a pose); out [N, 8] float32.  All on the
+// device, launched on `stream`.  Returns the cudaError_t of the launch.
 extern "C" int window_replay_f32(const float* tsd, int H, int W, float s,
                                  const float* k, const float* ray,
                                  const float* idx_min, const float* idx_max,
                                  const bool* active, const float* tr,
-                                 float* out, int N, void* stream) {
+                                 float* out, int N, int beams_per_pose,
+                                 void* stream) {
+  if (beams_per_pose <= 0 || N % beams_per_pose != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Field g{tsd, H, W, s};
   constexpr int kThreads = 128;
   const long threads = static_cast<long>(N) * kWindow;
   window_replay_kernel<<<static_cast<unsigned>((threads + kThreads - 1) /
                                                kThreads),
                          kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, k, ray, idx_min, idx_max, active, tr, out, N);
+      g, k, ray, idx_min, idx_max, active, tr, out, N, beams_per_pose);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of the rounds kernel the current card holds at once (a
+// cooperative launch may take no more).  Negative: the cudaError_t of the
+// query.
+extern "C" int window_rounds_resident_blocks() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, window_rounds_kernel, kRoundsThreads, 0);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return sms * per_sm;
 }
 
 // Rounds 2..ROUNDS.  S [N, 8] float32, updated in place; lev [N, n_rounds]
 // float32, a beam's rounds adjacent and `lev_stride` floats from one beam to
 // the next (the later columns of the candidate sweep's levels are taken as
-// they lie); ray, idx_min, idx_max, tr as above; cap replays a round at most
-// (cap * 4 bytes of shared memory, at most 48 KB); dropped_out one int64:
-// the needing beams beyond cap, summed over the rounds.  Returns the
-// cudaError_t of the launch.
+// they lie); ray, idx_min, idx_max, tr, beams_per_pose as above; cap
+// replays a round at most; `blocks` (ops/window_replay_cuda.py::
+// window_rounds_blocks, at most window_rounds_resident_blocks()): with one,
+// the list lies in cap * 4 bytes of shared memory (at most 48 KB) and
+// `scratch` is not read; with more, scratch holds cap + blocks int32 and
+// the launch is cooperative.  dropped_out one int64: the needing beams
+// beyond cap, summed over the rounds.  Returns the cudaError_t of the
+// launch.
 extern "C" int window_rounds_f32(const float* tsd, int H, int W, float s,
                                  float* S, const float* lev,
                                  const float* ray, const float* idx_min,
                                  const float* idx_max, const float* tr,
                                  int N, int n_rounds, int lev_stride,
-                                 int cap, long long* dropped_out,
+                                 int cap, int beams_per_pose, int blocks,
+                                 int* scratch, long long* dropped_out,
                                  void* stream) {
-  const Field g{tsd, H, W, s};
-  window_rounds_kernel<<<1, kRoundsThreads, cap * sizeof(int),
-                         static_cast<cudaStream_t>(stream)>>>(
-      g, S, lev, ray, idx_min, idx_max, tr, N, n_rounds, lev_stride, cap,
-      dropped_out);
-  return static_cast<int>(cudaGetLastError());
+  if (beams_per_pose <= 0 || N % beams_per_pose != 0 || blocks < 1 ||
+      (blocks > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Field g{tsd, H, W, s};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int chunk = (N + blocks - 1) / blocks;
+  if (blocks == 1) {
+    window_rounds_kernel<<<1, kRoundsThreads, cap * sizeof(int), st>>>(
+        g, S, lev, ray, idx_min, idx_max, tr, N, n_rounds, lev_stride, cap,
+        beams_per_pose, chunk, scratch, dropped_out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  void* args[] = {&g,      &S,   &lev,        &ray, &idx_min,
+                  &idx_max, &tr, &N,          &n_rounds, &lev_stride,
+                  &cap,    &beams_per_pose,   &chunk, &scratch,
+                  &dropped_out};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(window_rounds_kernel), dim3(blocks),
+      dim3(kRoundsThreads), args, 0, st));
 }

@@ -116,3 +116,30 @@ def interpolate_normal(grid: TsdGrid, coords: torch.Tensor
     n = n / torch.where(norm > 0, norm, 1.0)
     n = torch.where(ok[..., None], n, math.nan)
     return n, ok
+
+
+def interpolate_bilinear_safe(grid: TsdGrid, coords: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiation-safe bilinear interpolation (port of
+    ohm_tsd_slam_tpu/grid/interpolate.py::interpolate_bilinear_safe): the
+    values of `interpolate_bilinear` where it succeeds, with NaN taps
+    replaced by zeros inside the arithmetic, so a backward pass never
+    multiplies a NaN into the weights' gradients (d/dcoords).  Returns
+    (tsd, ok): tsd is 0 where ok is False."""
+    ix, iy, wx, wy, valid = coord2cell(grid, coords)
+    td = grid.tile_dim
+    txc = torch.div(ix, td, rounding_mode="floor").clamp(0, grid.tiles_x - 1)
+    tyc = torch.div(iy, td, rounding_mode="floor").clamp(0, grid.tiles_y - 1)
+    tile_ok = grid.tile_init.reshape(-1)[tyc * grid.tiles_x + txc]
+
+    taps = [_tap(grid, ix, iy), _tap(grid, ix, iy + 1),
+            _tap(grid, ix + 1, iy), _tap(grid, ix + 1, iy + 1)]
+    finite = ~(torch.isnan(taps[0]) | torch.isnan(taps[1])
+               | torch.isnan(taps[2]) | torch.isnan(taps[3]))
+    v00, v10, v01, v11 = [torch.nan_to_num(t) for t in taps]
+    tsd = (v00 * (1.0 - wy) * (1.0 - wx)
+           + v10 * wy * (1.0 - wx)
+           + v01 * (1.0 - wy) * wx
+           + v11 * wy * wx)
+    ok = valid & tile_ok & finite
+    return torch.where(ok, tsd, 0.0), ok

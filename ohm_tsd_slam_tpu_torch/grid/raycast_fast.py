@@ -1,5 +1,6 @@
 """The isocontour ("fast") caster (port of
-ohm_tsd_slam_tpu/grid/raycast_fast.py, single pose).
+ohm_tsd_slam_tpu/grid/raycast_fast.py: one pose, or a pose batch folded
+into the beam axis).
 
 The exact march samples every beam at every cell step.  This caster finds
 where a beam can hit first and replays the exact march only there:
@@ -54,6 +55,7 @@ from ohm_tsd_slam_tpu_torch.grid.compact import (
 from ohm_tsd_slam_tpu_torch.grid.raycast import (
     RaycastResult,
     beam_geometry,
+    beam_geometry_batch,
     first_event,
     raycast,
     sensor_frame,
@@ -392,6 +394,28 @@ def is_stale(segments: SegmentCache, grid: TsdGrid) -> bool:
 # per-scan render
 # --------------------------------------------------------------------------
 
+def beam_origins(tr: torch.Tensor, n: int) -> torch.Tensor:
+    """The sensor translation of each of n beams from the table tr [P, 2]
+    of a pose batch folded into the beam axis (raycast_fast_batch: the
+    beams of pose p are the p-th of P equal runs): [2] where there is one
+    row ([2] or [1, 2]), else [n, 2]."""
+    if tr.numel() == 2:
+        return tr.reshape(2)
+    P = tr.shape[0]
+    if tr.shape != (P, 2) or n % P:
+        raise ValueError(f"{n} beams do not split into the {tuple(tr.shape)} "
+                         "translation table's poses")
+    return tr.repeat_interleave(n // P, dim=0)
+
+
+def _xy(origins: torch.Tensor):
+    """beam_origins' x and y: 0-dim for one row, else [n, 1] columns (one
+    operation on the same values either way)."""
+    if origins.dim() == 1:
+        return origins[0], origins[1]
+    return origins[:, 0:1], origins[:, 1:2]
+
+
 def segment_min_plain(pack: torch.Tensor, count: torch.Tensor,
                       ray: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                       t_after: torch.Tensor, tr: torch.Tensor,
@@ -399,13 +423,13 @@ def segment_min_plain(pack: torch.Tensor, count: torch.Tensor,
     """Twin of csrc/segment_min.cu (TPU kernel 4's contract): K levels of
     earliest intersections per beam from the [8, S] pack, level k being
     the earliest t >= level k-1 + cover (level 0: t >= t_after).  `tr` is
-    the sensor translation in the pack's frame; segments past `count`
-    do not count.  Returns [B, levels] (inf = none).  Reads `count` back
-    to bound the chunk loop."""
+    the table of sensor translations in the pack's frame (`beam_origins`);
+    segments past `count` do not count.  Returns [B, levels] (inf = none).
+    Reads `count` back to bound the chunk loop."""
     n = min(int(count), pack.shape[1])
     rayx, rayy = ray[:, 0:1], ray[:, 1:2]
     lo, hi = lo[:, None], hi[:, None]
-    trx, try_ = tr[0], tr[1]
+    trx, try_ = _xy(beam_origins(tr, ray.shape[0]))
     c1tr = rayx * try_ - rayy * trx                       # cross(ray, tr)
     out = []
     bound = t_after[:, None]
@@ -485,14 +509,16 @@ def window_replay_plain(grid: TsdGrid, k: torch.Tensor, ray: torch.Tensor,
     Returns [N, 8]: hit, any_ev, pos_x, pos_y, interp, nx, ny, n_ok (0/1
     flags); zeros for inactive beams.  Without an event the row holds the
     geometry of the window's first sample pair, as the JAX package's
-    _window_events does."""
+    _window_events does.  `tr` is the table of sensor translations
+    (`beam_origins`)."""
     s = grid.cell_size
     tsd = grid.tsd
     dtype = tsd.dtype
+    trx, try_ = _xy(beam_origins(tr, k.shape[0]))
     j = torch.arange(WINDOW, dtype=dtype, device=tsd.device)
     t_w = window_start(k, idx_min)[:, None] + j[None, :]  # [N, W]
-    px = tr[0] + t_w * ray[:, 0:1]
-    py = tr[1] + t_w * ray[:, 1:2]
+    px = trx + t_w * ray[:, 0:1]
+    py = try_ + t_w * ray[:, 1:2]
     v = _taps(tsd, s, px, py)
     hit, any_ev, k_ev, interp = first_event(v, t_w, idx_max)
     pos_x = torch.gather(px[:, 1:], 1, k_ev)[:, 0]
@@ -540,16 +566,19 @@ def window_rounds_plain(grid: TsdGrid, S: torch.Tensor, lev: torch.Tensor,
     did not need the round is resolved from then on.
 
     Returns (S after the rounds, the argument left as it was; the int64
-    count of needing beams beyond `cap`, summed over the rounds)."""
+    count of needing beams beyond `cap`, summed over the rounds).  `tr` is
+    the table of sensor translations (`beam_origins`)."""
     n_dropped = torch.zeros((), dtype=torch.int64, device=S.device)
+    origins = beam_origins(tr, S.shape[0])
     for r in range(lev.shape[1]):
         t_r = lev[:, r]
         need = torch.isfinite(t_r) & ~(S[:, 1] > 0.0)
         n_dropped = n_dropped + (need.sum() - cap).clamp(min=0)
         idx_u, uvalid = compact_mask(need, cap)
         k_u = torch.where(uvalid, t_r[idx_u], 0.0)
-        rows = window_replay_plain(grid, k_u, ray[idx_u], idx_min[idx_u],
-                                   idx_max[idx_u], uvalid, tr)
+        rows = window_replay_plain(
+            grid, k_u, ray[idx_u], idx_min[idx_u], idx_max[idx_u], uvalid,
+            origins if origins.dim() == 1 else origins[idx_u])
         S = _scatter_rows(S, idx_u, (rows[:, 1] > 0.0) & uvalid, rows)
         S[:, 1] = torch.maximum(S[:, 1], (~need).to(S.dtype))
     return S, n_dropped
@@ -568,7 +597,10 @@ def _core(grid, segments, ray, tr, idx_min, idx_max, feasible, n_dropped,
     that is unresolved has a candidate t_1 >= lo, so its second sweep
     starts at t_1 + COVER: its levels are levels 1.. of one sweep with
     `cover=COVER`.  The rounds never read the levels of a resolved beam
-    (window_rounds_plain's `need`)."""
+    (window_rounds_plain's `need`).
+
+    `tr` is [2] for one scan, or the [P, 2] table of a pose batch whose
+    beams are folded pose-major into the N beams (`beam_origins`)."""
     N = ray.shape[0]
     lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
     hi = torch.ceil(idx_max) + 1.0
@@ -595,6 +627,19 @@ def _core(grid, segments, ray, tr, idx_min, idx_max, feasible, n_dropped,
     return coords_w, S[:, 5:7], hit, S[:, 7] > 0.0, n_dropped
 
 
+def _cache_and_drops(grid: TsdGrid, segments: Optional[SegmentCache],
+                     max_segments: Optional[int], n_beams: int,
+                     ks: CasterKernels):
+    """The segment cache to render with (extracted inline when none is
+    given) and the drops so far: the extraction's, and every beam for a
+    stale cache (a full overflow)."""
+    if segments is None:
+        segments = extract_segments(grid, max_segments, ks)
+        return segments, segments.n_dropped
+    return segments, segments.n_dropped + (n_beams if is_stale(segments,
+                                                               grid) else 0)
+
+
 def raycast_fast(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
                  segments: Optional[SegmentCache] = None,
                  max_segments: Optional[int] = None,
@@ -605,19 +650,45 @@ def raycast_fast(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     the result may have lost beams (see raycast_checked)."""
     ks = kernels or cuda_kernels()
     ray, tr, idx_min, idx_max, feasible = beam_geometry(grid, geom, pose)
-    N = ray.shape[0]
-    if segments is None:
-        segments = extract_segments(grid, max_segments, ks)
-        n_dropped = segments.n_dropped
-    else:
-        # a stale cache counts as a full overflow
-        n_dropped = segments.n_dropped + (N if is_stale(segments, grid)
-                                          else 0)
+    segments, n_dropped = _cache_and_drops(grid, segments, max_segments,
+                                           ray.shape[0], ks)
     coords_w, normals_w, hit, n_ok, n_dropped = _core(
         grid, segments, ray, tr, idx_min, idx_max, feasible, n_dropped, ks)
 
     return sensor_frame(pose.to(grid.tsd.dtype), coords_w, normals_w,
                         feasible & hit & n_ok, n_dropped)
+
+
+def raycast_fast_batch(grid: TsdGrid, geom: SensorPolar2D,
+                       poses: torch.Tensor,
+                       segments: Optional[SegmentCache] = None,
+                       max_segments: Optional[int] = None,
+                       kernels: Optional[CasterKernels] = None
+                       ) -> RaycastResult:
+    """raycast_fast for P poses [P, 3, 3] against one grid in one pass
+    (ohm_tsd_slam_tpu/grid/raycast_fast.py::raycast_fast_batch): the pose
+    axis is folded pose-major into the beam axis, so kernels C, D and D's
+    rounds launch once each for all P * B beams, with a [P, 2] table of
+    sensor translations (`beam_origins`); one extraction (or one cache)
+    serves every pose, and the rounds' capacity is unresolved_cap(P * B).
+
+    Returns a RaycastResult whose fields have a leading [P] axis;
+    n_dropped is one total (a stale cache counts P * B).  Each pose's rows
+    equal raycast_fast's for that pose alone while nothing is dropped: a
+    beam's arithmetic does not depend on the batch."""
+    ks = kernels or cuda_kernels()
+    P, B = poses.shape[0], geom.size
+    N = P * B
+    ray, tr, idx_min, idx_max, feasible = beam_geometry_batch(grid, geom,
+                                                              poses)
+    segments, n_dropped = _cache_and_drops(grid, segments, max_segments, N,
+                                           ks)
+    coords_w, normals_w, hit, n_ok, n_dropped = _core(
+        grid, segments, ray.reshape(N, 2), tr, idx_min.reshape(N),
+        idx_max.reshape(N), feasible.reshape(N), n_dropped, ks)
+    return sensor_frame(poses.to(grid.tsd.dtype), coords_w.reshape(P, B, 2),
+                        normals_w.reshape(P, B, 2),
+                        feasible & (hit & n_ok).reshape(P, B), n_dropped)
 
 
 def raycast_checked(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,

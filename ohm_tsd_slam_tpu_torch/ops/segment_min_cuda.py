@@ -6,7 +6,10 @@ ohm_tsd_slam_tpu/ops/raycast_pallas.py::segment_min_pallas.  The plain
 version is grid/raycast_fast.py::segment_min_plain; the wrapper runs it for
 tensors on the CPU.  For tensors on CUDA it launches the kernel or raises;
 `segment_min.launches` counts the launches: one kernel launch a call,
-whatever the number of levels.
+whatever the number of levels and poses.  `tr` is a table of P sensor
+translations [P, 2] (one scan: [2] or [1, 2]); the beams of pose p are
+rows p * B / P .. (p + 1) * B / P - 1 (grid/raycast_fast.py::
+raycast_fast_batch).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("segment_min")
     fn = lib.segment_min_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
+        fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
+                       _P]
         fn.restype = _I
     return lib
 
@@ -47,8 +51,12 @@ def segment_min(pack: torch.Tensor, count: torch.Tensor, ray: torch.Tensor,
     if pack.dim() != 2 or pack.shape[0] != 8:
         raise ValueError(f"segment_min: pack must be [8, S], got "
                          f"{tuple(pack.shape)}")
+    P = max(tr.numel() // 2, 1)
+    if B % P:
+        raise ValueError(f"segment_min: {B} beams do not split into {P} "
+                         "poses")
     args = {"pack": (pack, pack.numel()), "ray": (ray, 2 * B), "lo": (lo, B),
-            "hi": (hi, B), "t_after": (t_after, B), "tr": (tr, 2)}
+            "hi": (hi, B), "t_after": (t_after, B), "tr": (tr, 2 * P)}
     flat = {}
     for name, (t, numel) in args.items():
         if t.device != dev or t.dtype != torch.float32 or t.numel() != numel:
@@ -71,17 +79,19 @@ def launch(pack: torch.Tensor, count: torch.Tensor, ray: torch.Tensor,
            tr: torch.Tensor, out: torch.Tensor, cover: float) -> None:
     """Launch the kernel on the current stream, on buffers the caller
     holds (segment_min checks the inputs and allocates the result): fills
-    `out` [B, levels].  Raises if the launch is refused; counts it in
+    `out` [B, levels], beam b at the translation of row b // (B // P) of
+    `tr` [P, 2].  Raises if the launch is refused; counts it in
     segment_min.launches."""
     dev = pack.device
     B, levels = out.shape
+    P = tr.numel() // 2
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.segment_min_f32(
             pack.data_ptr(), pack.shape[1], count.data_ptr(),
             ray.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             t_after.data_ptr(), tr.data_ptr(), out.data_ptr(), B, levels,
-            float(cover), torch.cuda.current_stream(dev).cuda_stream)
+            float(cover), B // P, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_min_f32 launch failed: cudaError {err}")
     segment_min.launches += 1

@@ -1,0 +1,216 @@
+"""The multi-robot SLAM step on one card (port of
+ohm_tsd_slam_tpu/parallel/sharded.py without a mesh).
+
+One full cycle for R robots sharing one grid: every robot's model scan is
+rendered in one pose batch (grid/raycast_fast.py::raycast_fast_batch:
+kernels C, D and D's rounds launch once for all robots), each robot is
+registered in its mode (the doRegistration dispatch of
+ThreadLocalize.cpp:513-591, as slam/localize.py::localize_step), every
+robot's scan is fused into the grid in turn (serialized grid writes, as
+ThreadMapping does for the shared grid), and the differentiable
+map-residual pose gradient is taken per robot.
+
+The JAX package also runs this step over a device mesh (`mesh=`,
+`make_sharded_step`, the shard_map raycast and matchers of
+parallel/shard_raycast.py and shard_matchers.py).  Those wait for the
+port's multi-device work (ROADMAP.md queue 1 item 15); this module is the
+step on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ohm_tsd_slam_tpu_torch.config import RegMode
+from ohm_tsd_slam_tpu_torch.core import se2
+from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
+from ohm_tsd_slam_tpu_torch.grid.interpolate import interpolate_bilinear_safe
+from ohm_tsd_slam_tpu_torch.grid.raycast import RaycastResult, raycast
+from ohm_tsd_slam_tpu_torch.grid.raycast_fast import raycast_fast_batch
+from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
+from ohm_tsd_slam_tpu_torch.registration.amcl import match_amcl
+from ohm_tsd_slam_tpu_torch.registration.gauss_newton import (
+    match_gauss_newton,
+)
+from ohm_tsd_slam_tpu_torch.registration.icp import icp
+from ohm_tsd_slam_tpu_torch.registration.ransac import (
+    match_normal,
+    match_pdf,
+    match_tsd,
+)
+from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
+    SensorPolar2D,
+    data_to_cartesian,
+)
+from ohm_tsd_slam_tpu_torch.slam.localize import (
+    LocalizeParams,
+    is_registration_error,
+)
+
+_SEED_MIX = 1_000_003
+_GRID_FIELDS = ("tsd", "weight", "tile_init", "tile_initw")
+
+
+class SlamStepResult(NamedTuple):
+    grid: TsdGrid
+    poses: torch.Tensor        # [R, 3, 3] updated poses
+    reg_error: torch.Tensor    # [R] bool
+    pose_grad: torch.Tensor    # [R, 3] d(residual)/d(x, y, theta)
+    rms: torch.Tensor          # [R]
+    # the fast caster's drop count summed over the robots (int64; 0 =
+    # clean).  When nonzero the step rendered every robot again with the
+    # exact march, so no beam was lost.
+    rays_dropped: Optional[torch.Tensor] = None
+
+
+def map_residual_loss(grid: TsdGrid, geom: SensorPolar2D,
+                      pose: torch.Tensor, data: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Mean squared TSD value at the world positions of the scan points:
+    the objective TSD_PDFMatching evaluates (TSD_PDFMatching.cpp:223-251)
+    made differentiable; zero when every point lies on the stored
+    surface."""
+    scene, valid = data_to_cartesian(geom, data, mask)
+    world = se2.transform_points(pose, scene)
+    tsd, interp_ok = interpolate_bilinear_safe(grid, world)
+    ok = valid & interp_ok
+    sq = torch.where(ok, tsd * tsd, 0.0)
+    return sq.sum() / ok.sum().clamp(min=1)
+
+
+def pose_gradient(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+                  data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """d(map residual)/d(x, y, theta) of the pose perturbed on the right
+    by se2.make(x, y, theta), at zero, by autograd through the bilinear
+    taps (the differentiable-localization direction)."""
+    with torch.enable_grad():
+        params = torch.zeros(3, dtype=pose.dtype, device=pose.device,
+                             requires_grad=True)
+        delta = se2.make(params[0], params[1], params[2], dtype=pose.dtype,
+                         device=pose.device)
+        loss = map_residual_loss(grid, geom, pose @ delta, data, mask)
+        (grad,) = torch.autograd.grad(loss, params)
+    return grad
+
+
+def _robot_generators(seed: int, n: int, device) -> list:
+    """One draw stream a robot, seeded from (seed, robot)."""
+    gens = []
+    for r in range(n):
+        gen = torch.Generator(device=device)
+        gen.manual_seed((seed * _SEED_MIX + r) % (1 << 63))
+        gens.append(gen)
+    return gens
+
+
+def _model(models: RaycastResult, r: int) -> RaycastResult:
+    return RaycastResult(*(f[r] if f.dim() else f for f in models))
+
+
+def multi_robot_slam_step(grid: TsdGrid, poses: torch.Tensor,
+                          data: torch.Tensor, mask: torch.Tensor,
+                          params: LocalizeParams, seed: int = 0,
+                          inject: Optional[Sequence] = None
+                          ) -> SlamStepResult:
+    """One full SLAM cycle for R robots sharing one grid, on the grid's
+    device (ohm_tsd_slam_tpu/parallel/sharded.py::multi_robot_slam_step
+    with mesh=None; the mesh waits for ROADMAP.md queue 1 item 15).
+
+    Args:
+      grid: the shared TSD grid.
+      poses: [R, 3, 3] sensor poses.
+      data, mask: [R, B] masked scans (the same scan geometry for every
+        robot, as in configs/double-laser.yaml).
+      params: static localization parameters; every registration mode
+        runs: ICP, the RANSAC seeds EXP, PDF and TSD before ICP, AMCL
+        before ICP, and direct Gauss-Newton (GN renders nothing).
+      seed: the stochastic modes draw from one torch.Generator a robot,
+        on the grid's device, seeded from (seed, robot); callers should
+        pass a fresh seed each step, as the JAX package's callers pass a
+        fresh key.
+      inject: per robot, the matcher's draws given (a RansacInject in the
+        modes EXP, PDF, TSD; an AmclInject in mode AMCL), for the parity
+        tests.
+
+    The render is one raycast_fast_batch for all robots (the grid's
+    segments extracted inline, once for all robots) and one host read
+    of the summed drop count: when anything was dropped every robot is
+    rendered again with the exact march (as the JAX package re-renders
+    the whole batch).  The fuse keeps the old grid where a robot's
+    registration failed, with torch.where on the card (no host read)."""
+    geom = params.geom
+    R = poses.shape[0]
+    mode = params.mode
+    dtype, dev = grid.tsd.dtype, grid.tsd.device
+    poses = poses.to(dtype)
+    generators = _robot_generators(seed, R, dev)
+    inject = list(inject) if inject is not None else [None] * R
+
+    rays_dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    models = None
+    if mode != int(RegMode.GN):
+        models = raycast_fast_batch(grid, geom, poses)
+        rays_dropped = models.n_dropped
+        if int(rays_dropped) > 0:
+            exact = [raycast(grid, geom, poses[r]) for r in range(R)]
+            models = RaycastResult(*(torch.stack(f) for f in zip(*exact)))
+
+    new_poses, errs, grads, rms = [], [], [], []
+    for r in range(R):
+        pose = poses[r]
+        scene, smask = data_to_cartesian(geom, data[r], mask[r])
+        gen, inj = generators[r], inject[r]
+        if models is None:
+            # direct scan-to-map Gauss-Newton: no render, no pairing
+            gn = match_gauss_newton(grid, pose, scene, smask, params.gn)
+            T = gn.T
+            err = is_registration_error(T, params.trns_max, params.rot_max)
+            err = err | (gn.matches < params.gn.min_matches)
+            res_rms = gn.rms
+        else:
+            model = _model(models, r)
+            # pre-registration seed by mode (ThreadLocalize.cpp:530-568)
+            if mode == int(RegMode.EXP):
+                T_init = match_normal(gen, model.coords, model.mask, scene,
+                                      smask, params.ransac, inject=inj)
+            elif mode == int(RegMode.PDF):
+                T_init = match_pdf(gen, model.coords, model.mask, scene,
+                                   smask, params.ransac, params.beam,
+                                   inject=inj)
+            elif mode == int(RegMode.TSD):
+                T_init = match_tsd(gen, grid, pose, model.coords, model.mask,
+                                   scene, smask, params.ransac, inject=inj)
+            elif mode == int(RegMode.AMCL):
+                T_init = match_amcl(gen, grid, pose, scene, smask,
+                                    params.amcl, inject=inj)
+            else:
+                T_init = torch.eye(3, dtype=dtype, device=dev)
+            res = icp(model.coords, model.mask, scene, smask, params.icp,
+                      T_init=T_init, sensor_pose=pose,
+                      model_normals=model.normals)
+            T = res.T
+            err = is_registration_error(T, params.trns_max, params.rot_max)
+            err = err | (model.mask.sum() == 0)
+            res_rms = res.rms
+        new_pose = torch.where(err, pose, pose @ T)
+        new_poses.append(new_pose)
+        errs.append(err)
+        grads.append(pose_gradient(grid, geom, new_pose, data[r], mask[r]))
+        rms.append(res_rms)
+
+    # fuse every robot's scan in turn; a failed robot's push is discarded
+    push_fn = best_push(grid)
+    g = grid
+    for r in range(R):
+        g2 = push_fn(g, geom, new_poses[r], data[r], mask[r])
+        g = dataclasses.replace(g, **{
+            f: torch.where(errs[r], getattr(g, f), getattr(g2, f))
+            for f in _GRID_FIELDS})
+
+    return SlamStepResult(grid=g, poses=torch.stack(new_poses),
+                          reg_error=torch.stack(errs),
+                          pose_grad=torch.stack(grads), rms=torch.stack(rms),
+                          rays_dropped=rays_dropped)

@@ -145,6 +145,51 @@ def test_kernels_match_twins_on_a_room(cuda_device):
     assert not res.mask.any()                    # the sensor outside
 
 
+def _pose_batch(xyt, n, device):
+    """n poses spread about xyt as bench.py spreads its 128: xyt composed
+    with (d, -d, 2d) for d in linspace(-0.05, 0.05, n)."""
+    base = se2.make(*xyt, device=device)
+    return torch.stack([base @ se2.make(d, -d, 2.0 * d, device=device)
+                        for d in np.linspace(-0.05, 0.05, n).tolist()])
+
+
+@pytest.mark.cuda
+def test_pose_batch_kernels_match_twins(cuda_device):
+    """raycast_fast_batch at P = 128 (138,368 beams: the rounds take the
+    cooperative launch): C, D and D's rounds launched once each and equal
+    to their twins, and every pose's rows equal, bit for bit, to its own
+    raycast_fast."""
+    from ohm_tsd_slam_tpu_torch.ops.segment_min_cuda import segment_min
+    from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import (
+        window_replay,
+        window_rounds,
+    )
+
+    grid = _room(cuda_device)
+    geom = polar2d.SensorPolar2D(size=1081, angular_res=math.radians(0.25),
+                                 phi_min=math.radians(-135.0), max_range=8.0,
+                                 min_range=0.01)
+    poses = _pose_batch(POSES[0], 128, cuda_device)
+    check = KernelCheck()
+    seg = rf.extract_segments(grid, kernels=check.kernels)
+    before = (segment_min.launches, window_replay.launches,
+              window_rounds.launches)
+    batch = rf.raycast_fast_batch(grid, geom, poses, segments=seg,
+                                  kernels=check.kernels)
+    torch.cuda.synchronize()
+    assert (segment_min.launches, window_replay.launches,
+            window_rounds.launches) == tuple(n + 1 for n in before)
+    for name in ("segment_min", "window_replay", "window_rounds"):
+        assert check.stats[name] == {"calls": 1, "max_abs_err": 0.0}, name
+    assert int(batch.n_dropped) == 0
+    assert int(batch.mask.sum()) > 128 * 900
+    for p in range(poses.shape[0]):
+        single = rf.raycast_fast(grid, geom, poses[p], segments=seg)
+        for name in ("coords", "normals", "mask", "ranges"):
+            assert torch.equal(getattr(batch, name)[p],
+                               getattr(single, name)), (p, name)
+
+
 @pytest.mark.cuda
 def test_general_extraction_on_a_narrow_grid(cuda_device):
     """A float32 grid 64 cells wide on the card: kernel E behind the dense

@@ -8,7 +8,10 @@ numpy seed: the loop as the caster ran it inline before it had the entry
 point (`_inline_rounds`: compaction to `cap` slots, a replay of the slots,
 a scatter back), and a dense formulation with no compaction
 (`_dense_rounds`).  Cases: the round capacity reached or not, a round in
-which no beam needs a replay, 1081 beams and more than 1024.  Tests marked
+which no beam needs a replay, 1081 beams and more than 1024, and a pose
+batch of 8 scans folded into the beam axis with a [P, 2] translation table
+(8648 beams: on the card more than the one-block kernel takes, so the
+cooperative launch), within the capacity and far beyond it.  Tests marked
 `cuda` need the card and skip without one; on a machine with a card they
 run with
 
@@ -30,8 +33,12 @@ from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid.compact import compact_mask
 from ohm_tsd_slam_tpu_torch.grid.state import from_arrays
 from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import (
+    MAX_CAP,
+    ONE_BLOCK_BEAMS,
+    check_cap,
     window_replay,
     window_rounds,
+    window_rounds_blocks,
 )
 from ohm_tsd_slam_tpu_torch.sensor import polar2d
 from ohm_tsd_slam_tpu_torch.utils.testing import (
@@ -63,20 +70,31 @@ def _grid(dtype, device="cpu"):
     return from_arrays(field_arrays(f.astype(np_dtype), 0.04), device=device)
 
 
-def _round_one(grid, n_beams):
+def _round_one(grid, n_beams, poses=1):
     """The caster up to the rounds, on the twins: (S, lev, ray, idx_min,
-    idx_max, tr) as grid/raycast_fast.py::_core hands them on."""
+    idx_max, tr) as grid/raycast_fast.py::_core hands them on; with
+    `poses` > 1 a pose batch (XYT and poses a little behind it) folded into
+    the beam axis, tr the [poses, 2] table."""
     dtype, dev = grid.tsd.dtype, grid.tsd.device
     geom = polar2d.SensorPolar2D(
         size=n_beams, angular_res=math.radians(270.0) / n_beams,
         phi_min=math.radians(-135.0), max_range=9.0, min_range=0.01)
-    pose = se2.make(*XYT, dtype=dtype, device=dev)
     twins = rf.CasterKernels(
         rf.segment_layers_plain,
         lambda g, m, rows, size: rf.pack_rows_plain(g, m, size),
         rf.segment_min_plain, rf.window_replay_plain, None, None)
     seg = rf.extract_segments(grid, kernels=twins)
-    ray, tr, idx_min, idx_max, feasible = rf.beam_geometry(grid, geom, pose)
+    if poses == 1:
+        pose = se2.make(*XYT, dtype=dtype, device=dev)
+        ray, tr, idx_min, idx_max, feasible = rf.beam_geometry(grid, geom,
+                                                               pose)
+    else:
+        batch = torch.stack([
+            se2.make(XYT[0] - 0.05 * p, XYT[1] + 0.01 * p, XYT[2] - 0.02 * p,
+                     dtype=dtype, device=dev) for p in range(poses)])
+        ray, tr, idx_min, idx_max, feasible = (
+            x.reshape(-1, *x.shape[2:]) if x.dim() > 1 and i != 1 else x
+            for i, x in enumerate(rf.beam_geometry_batch(grid, geom, batch)))
     lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
     hi = torch.ceil(idx_max) + 1.0
     tr_pack = tr - seg.origin
@@ -98,20 +116,26 @@ def _case(name, dtype, device="cpu"):
     """(grid, S, lev, ray, idx_min, idx_max, tr, cap) of a named case."""
     n_beams = {"n1081": 1081, "n1081_overflow": 1081, "none_needed": 1081,
                "n1300": 1300, "n1300_random_overflow": 1300,
-               "n361": 361}[name]
+               "n361": 361, "batch8": 1081,
+               "batch8_random_overflow": 1081}[name]
+    poses = 8 if name.startswith("batch") else 1
     grid = _grid(dtype, device)
-    S, lev, ray, idx_min, idx_max, tr = _round_one(grid, n_beams)
-    cap = rf.unresolved_cap(n_beams)
+    S, lev, ray, idx_min, idx_max, tr = _round_one(grid, n_beams, poses)
+    cap = rf.unresolved_cap(n_beams * poses)
     if name == "n1081_overflow":
         cap = 4
+    elif name == "batch8":
+        # the slivers make each scan need ~90 replays a round, more than
+        # unresolved_cap(8648) = 256 for eight: a capacity the rounds fit
+        cap = 1024
     elif name == "none_needed":
         lev = torch.full_like(lev, math.inf)
-    elif name == "n1300_random_overflow":
+    elif name.endswith("random_overflow"):
         # needing beams all over the beam axis, far more than the capacity
         # in every round: the rank must count every lower beam
         rng = np.random.default_rng(7)
         cap = 16
-        S[:, 1] = torch.from_numpy(rng.random(n_beams) < 0.5).to(S)
+        S[:, 1] = torch.from_numpy(rng.random(S.shape[0]) < 0.5).to(S)
         steps = torch.from_numpy(
             rng.uniform(20.0, 90.0, lev.shape)).to(lev)
         lev = torch.where(torch.from_numpy(
@@ -120,16 +144,19 @@ def _case(name, dtype, device="cpu"):
 
 
 def _inline_rounds(grid, S, lev, ray, idx_min, idx_max, tr, cap):
-    """The rounds as the caster's core ran them inline."""
+    """The rounds as the caster's core ran them inline (each slot with its
+    beam's translation)."""
     n_dropped = torch.zeros((), dtype=torch.int64, device=S.device)
+    origins = rf.beam_origins(tr, S.shape[0])
     for r in range(lev.shape[1]):
         t_r = lev[:, r]
         need = torch.isfinite(t_r) & ~(S[:, 1] > 0.0)
         n_dropped = n_dropped + (need.sum() - cap).clamp(min=0)
         idx_u, uvalid = compact_mask(need, cap)
         k_u = torch.where(uvalid, t_r[idx_u], 0.0)
-        rows = rf.window_replay_plain(grid, k_u, ray[idx_u], idx_min[idx_u],
-                                      idx_max[idx_u], uvalid, tr)
+        rows = rf.window_replay_plain(
+            grid, k_u, ray[idx_u], idx_min[idx_u], idx_max[idx_u], uvalid,
+            origins if origins.dim() == 1 else origins[idx_u])
         take = (rows[:, 1] > 0.0) & uvalid
         ext = torch.cat([S, S.new_zeros((1, 8))])
         S = ext.index_copy(0, torch.where(take, idx_u, S.shape[0]),
@@ -162,7 +189,7 @@ def _assert_rows_equal(got, want):
 
 
 CASES = ["n1081", "n1081_overflow", "none_needed", "n1300",
-         "n1300_random_overflow", "n361"]
+         "n1300_random_overflow", "n361", "batch8", "batch8_random_overflow"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -206,6 +233,22 @@ def test_wrappers_run_the_twins_on_the_cpu():
     _assert_rows_equal(got, want)
     assert int(dropped) == int(want_dropped)
     assert (window_replay.launches, window_rounds.launches) == before
+
+
+def test_rounds_capacity_check_follows_the_launch():
+    """One block lists a round's beams in shared memory, so its capacity
+    stops at MAX_CAP; a cooperative launch lists them in a scratch tensor,
+    so the caster's capacity for a batch of 728 scans of 1081 beams, past
+    MAX_CAP, passes its check there."""
+    assert window_rounds_blocks(1081) == window_rounds_blocks(
+        ONE_BLOCK_BEAMS) == 1                    # no card asked
+    cap = rf.unresolved_cap(728 * 1081)
+    assert cap > MAX_CAP
+    check_cap(cap, blocks=132)
+    check_cap(MAX_CAP, blocks=1)
+    for bad, blocks in ((cap, 1), (0, 1), (0, 132)):
+        with pytest.raises(ValueError, match="cap"):
+            check_cap(bad, blocks)
 
 
 @pytest.mark.cuda
