@@ -78,6 +78,24 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       `run` on the card): every output file, the printed trajectory error
       within 2.5 cells, grid.npz equal to the text checkpoint of the same
       grid;
+   f. the row-sharded step (parallel/: mesh, distributed, shard_raycast,
+      shard_matchers, make_sharded_step) in three worlds of rank
+      processes on this card (this file with --mesh-rank): one rank on
+      NCCL, 2 ranks as (sp, dp) = (2, 1) and 4 as make_mesh's (2, 2) on
+      gloo (NCCL refuses two ranks on one card).  Each rank checks its
+      push into its row block against the whole grid's push, bit for bit;
+      the sharded render of each robot against the one-card caster
+      (coordinates within SHARD_COORD_TOL, hits within SHARD_MASK_FLIPS),
+      kernels A, B and C on the 513-row block against their twins; 20
+      ICP steps of make_sharded_step on configs/double-laser.yaml's two
+      robots within 2.5 cells, the first against one-card
+      multi_robot_slam_step within MULTI_TOL, with their launches (A and
+      B once and C four times a render, the push once a robot a step on
+      every rank); one TSD and one GN step; then prints the render's
+      wrapper and device time, the collectives a render and a step with
+      their time, and the step's time.  Kernels A and B also run on row
+      blocks of 257 and 513 rows of the ICP path's grid against their
+      twins;
 5. times: first a check that extract_segments, localize_step (in every
    mode) and the push wrapper make no host sync, then medians and
    quartiles of 25 runs after a warm-up, each printed beside the card's
@@ -108,6 +126,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -315,6 +334,11 @@ def compact_launch(mask, chans, size):
     return lambda: cc.launch(mask, chans, packed, row_cnt, status, total)
 
 
+# the kernel's largest tsd gap to the plain push (its error before it took
+# the cull, 1.28e-5)
+PUSH_TOL = 1.3e-5
+
+
 def compare_push(g_ref, g_ker) -> dict:
     """Kernel vs plain push on one grid, with the tolerances of
     tests/test_push_pallas.py (atan2f vs torch.atan2 bin flips)."""
@@ -358,7 +382,9 @@ def geom_1081(max_range=30.0):
 
 
 def merge_stats(total: dict, check) -> None:
-    for name, st in check.stats.items():
+    """Add a KernelCheck's calls and errors (or its `stats` dict) into
+    `total`."""
+    for name, st in getattr(check, "stats", check).items():
         t = total.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
         t["calls"] += st["calls"]
         t["max_abs_err"] = max(t["max_abs_err"], st["max_abs_err"])
@@ -632,8 +658,7 @@ def kernel_check(dev, push_check) -> dict:
         torch.cuda.synchronize()
     results["three_poses"] = compare_push(g_ref, g_ker)
     assert results["three_poses"]["finite_cells"] > 100_000
-    # the error of the kernel before it took the cull (1.28e-5) is the limit
-    assert results["three_poses"]["max_abs_err"] <= 1.3e-5, results
+    assert results["three_poses"]["max_abs_err"] <= PUSH_TOL, results
 
     inf = torch.full((BEAMS,), math.inf, device=dev)
     none = torch.zeros(BEAMS, dtype=torch.bool, device=dev)
@@ -2033,27 +2058,18 @@ def multi_robot_inputs(gts, k, dev):
             torch.stack([m for _, m in pairs]))
 
 
-def multi_robot_path(dev, label: str, push_check):
-    """multi_robot_slam_step on configs/double-laser.yaml's settings: two
-    robots sharing the 1024^2 grid, ICP (25 iterations), robot0's 30 m
-    laser for both (the step takes one scan geometry, as the JAX
-    package's), STEPS_MULTI steps along the ICP path's trajectories, the
-    launch counts set to 0 before and read after (one C, one D and one
-    rounds launch a step for both robots, A and B once, the push once a
-    robot); then one step each in the modes TSD and GN, and one ICP step
-    on the card against the CPU port in float32.  The grid starts from
-    each robot's first scan pushed at its start pose, as the node starts."""
+def multi_robot_setup(dev, push_check):
+    """configs/double-laser.yaml's two robots for the multi-robot step:
+    (cfg, geom, params, gts, grid, poses): robot0's 30 m laser for both
+    (the step takes one scan geometry, as the JAX package's), ICP with 25
+    iterations, STEPS_MULTI + 1 poses of each robot's trajectory, and the
+    grid that starts from each robot's first scan pushed at its start
+    pose, as the node starts."""
     import dataclasses
 
     from ohm_tsd_slam_tpu_torch.config import from_flat_params
     from ohm_tsd_slam_tpu_torch.core import se2
-    from ohm_tsd_slam_tpu_torch.grid.push import push
     from ohm_tsd_slam_tpu_torch.grid.state import create
-    from ohm_tsd_slam_tpu_torch.parallel import (
-        multi_robot_slam_step,
-        pose_gradient,
-    )
-    from ohm_tsd_slam_tpu_torch.registration.ransac import RansacParams
     from ohm_tsd_slam_tpu_torch.slam.localize import LocalizeParams
 
     cfg = from_flat_params(DOUBLE_LASER)
@@ -2073,6 +2089,29 @@ def multi_robot_path(dev, label: str, push_check):
     data, mask = multi_robot_inputs(gts, 0, dev)
     for r in range(len(gts)):
         grid = push_check(grid, geom, poses[r], data[r], mask[r])
+    return cfg, geom, params, gts, grid, poses
+
+
+def multi_robot_path(dev, label: str, push_check):
+    """multi_robot_slam_step on configs/double-laser.yaml's settings: two
+    robots sharing the 1024^2 grid, ICP (25 iterations), robot0's 30 m
+    laser for both (the step takes one scan geometry, as the JAX
+    package's), STEPS_MULTI steps along the ICP path's trajectories, the
+    launch counts set to 0 before and read after (one C, one D and one
+    rounds launch a step for both robots, A and B once, the push once a
+    robot); then one step each in the modes TSD and GN, and one ICP step
+    on the card against the CPU port in float32.  The grid starts from
+    each robot's first scan pushed at its start pose, as the node starts."""
+    import dataclasses
+
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.parallel import (
+        multi_robot_slam_step,
+        pose_gradient,
+    )
+    from ohm_tsd_slam_tpu_torch.registration.ransac import RansacParams
+
+    cfg, geom, params, gts, grid, poses = multi_robot_setup(dev, push_check)
     grid0, poses0 = grid, poses
 
     reset_counts()
@@ -2165,6 +2204,426 @@ def multi_robot_path(dev, label: str, push_check):
     assert gap["pose_grad_same_pose"] < RENDER_TOL, gap
     out["card_cpu_gap"] = gap
     return out
+
+
+# worlds of the mesh path: (backend, ranks, mesh shape; "auto" = make_mesh)
+MESH_WORLDS = (("nccl", 1, "auto"), ("gloo", 2, (2, 1)),
+               ("gloo", 4, "auto"))
+MESH_TIMED = 10              # timed sharded renders and steps a rank
+MESH_RANK_TIMEOUT = 300      # s: a world's ranks, start to finish
+SHARD_COORD_TOL = 1e-4       # m: sharded render against the one-card caster
+SHARD_MASK_FLIPS = 0.005     # share of beams whose hit may differ
+
+
+def start_mesh_worlds(tmp: str) -> list:
+    """Start every rank process of MESH_WORLDS at once (this file with
+    --mesh-rank, torchrun's environment), each writing into its world's
+    folder under `tmp`: they import and set up the card while the paths
+    before mesh_path run, and each world joins only when mesh_path lets
+    it in (its go file).  A rank whose parent is gone exits.  Returns
+    [(name, ranks, folder, processes)] in MESH_WORLDS' order."""
+    import socket
+
+    from ohm_tsd_slam_tpu_torch.ops import _build
+
+    # every library exists before the ranks start: they load, never build
+    _build.build_all(["push"] + [n for n, _, _ in CASTER if n not in SOURCE])
+    started = []
+    for backend, n, shape in MESH_WORLDS:
+        name = f"{backend}_{n}"
+        shape_arg = shape if shape == "auto" else f"{shape[0]}x{shape[1]}"
+        out_dir = os.path.join(tmp, name)
+        os.makedirs(out_dir)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), WORLD_SIZE=str(n),
+                   OMP_NUM_THREADS="1")
+        procs = []
+        for r in range(n):
+            with open(os.path.join(out_dir, f"rank{r}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--mesh-rank", backend, shape_arg, out_dir],
+                    env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                    stdout=log, stderr=subprocess.STDOUT))
+        started.append((name, n, out_dir, procs))
+    return started
+
+
+def stop_mesh_worlds(started: list) -> None:
+    for _, _, _, procs in started:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _rank_failed(name: str, out_dir: str, r: int, proc) -> None:
+    with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+        print(f"mesh {name} rank {r} output:\n{f.read()[-6000:]}")
+    raise AssertionError((name, r, proc.returncode))
+
+
+def mesh_path(started: list, label: str, push_check,
+              caster_stats: dict) -> dict:
+    """The row-sharded step (parallel/) in the worlds start_mesh_worlds
+    started, all on this card: world 1 on NCCL, worlds 2 ((2, 1)) and 4
+    (make_mesh: (2, 2)) on gloo, which lets ranks share a card.  One world
+    at a time is let in (its go file) and runs `mesh_rank` in each rank, so
+    no two worlds share the card; a rank that fails fails the run.  The
+    ranks' kernel checks (every launch on a row block against its twin)
+    and push checks are merged into this run's; returns each world's rank
+    results."""
+    worlds = {}
+    try:
+        for name, n, out_dir, procs in started:
+            # the world has ended when every rank has written its results;
+            # its processes leave the card while the next world runs
+            t0 = time.perf_counter()
+            open(os.path.join(out_dir, "go"), "w").close()
+            paths = [os.path.join(out_dir, f"rank{r}.json") for r in range(n)]
+            while not all(map(os.path.exists, paths)):
+                for r, proc in enumerate(procs):
+                    if proc.poll() not in (None, 0):
+                        _rank_failed(name, out_dir, r, proc)
+                assert time.perf_counter() - t0 < MESH_RANK_TIMEOUT, name
+                time.sleep(0.02)
+            wall = time.perf_counter() - t0
+            ranks = []
+            for path in paths:
+                with open(path) as f:
+                    ranks.append(json.load(f))
+            for res in ranks:
+                merge_stats(caster_stats, res["kernel_check"])
+                for key, v in res["push_check"].items():
+                    if key == "part_weight_max_abs_err":
+                        push_check.stats[key] = max(push_check.stats[key], v)
+                    else:
+                        push_check.stats[key] += v
+            print(f"mesh {name} (sp, dp) = {tuple(ranks[0]['shape'])}: "
+                  f"{n} rank processes, {wall:.1f} s from the go to the "
+                  f"last rank's results [{label}]")
+            for res in ranks:
+                report_mesh_rank(name, res, label)
+            worlds[name] = ranks
+        for name, _, out_dir, procs in started:
+            for r, proc in enumerate(procs):
+                if proc.wait(timeout=MESH_RANK_TIMEOUT) != 0:
+                    _rank_failed(name, out_dir, r, proc)
+    finally:
+        stop_mesh_worlds(started)
+    return worlds
+
+
+def block_check(grid, total: dict) -> dict:
+    """Kernels A and B on row blocks of `grid` of the heights a row block
+    with its halo row has at 1024 rows (257 at sp = 4, 513 at sp = 2), at
+    three offsets, against their twins (ops/kernel_check.py): heights
+    that are no multiple of any tile."""
+    import dataclasses
+
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck
+
+    out = {}
+    for y0, rows in ((0, 257), (384, 257), (511, 513)):
+        check = KernelCheck()
+        block = dataclasses.replace(
+            grid, tsd=grid.tsd[y0:y0 + rows].contiguous())
+        _, _, valid, dropped = rf.extract_endpoints(block, 8192,
+                                                    check.kernels)
+        torch.cuda.synchronize()
+        merge_stats(total, check)
+        out[f"rows {y0}-{y0 + rows}"] = {
+            "segments": int(valid.sum()), "dropped": int(dropped),
+            **{k: check.stats[k] for k in ("segment_layers", "pack_rows")}}
+        assert check.stats["pack_rows"]["calls"] == 1, check.stats
+    return out
+
+
+def report_mesh_rank(name: str, res: dict, label: str) -> None:
+    """Print one rank's checks and times (mesh_rank's results)."""
+    tag = f"mesh {name} rank {res['rank']}"
+    print(f"{tag}: seconds since the rank's start at the end of each "
+          f"phase {json.dumps(res['phase_s'])}")
+    print(f"{tag}: push into rows {res['push_rows_bits']['rows']} against "
+          f"the whole grid's: {json.dumps(res['push_rows_bits'])}; against "
+          f"the plain push into the block (tsd within {PUSH_TOL}): "
+          f"{json.dumps(res['push_rows_plain'])}")
+    for r, rr in enumerate(res["render"]):
+        print(f"{tag}: sharded render robot{r} against the one-card caster: "
+              f"{json.dumps(rr)} (coordinates within {SHARD_COORD_TOL} m, "
+              f"at most {SHARD_MASK_FLIPS:.1%} of the beams' hits flipped)")
+    print(f"{tag}: kernel check on the row block: "
+          f"{json.dumps(res['kernel_check'])}")
+    print(f"{tag}: {STEPS_MULTI} ICP steps, max |pose - truth| "
+          f"{json.dumps(res['errs'])} m, first step against the one-card "
+          f"step {res['first_step_gap']:.3e} m (within {MULTI_TOL}); kernel "
+          f"launches {json.dumps(res['launches'])}; TSD and GN steps "
+          f"{json.dumps(res['modes'])}")
+    render, step = res["render_ms"], res["step_ms"]
+    device = ("not measured (the profiler shows no device activity)"
+              if res["render_device"] is None else
+              f"{res['render_device'][0]} device kernels and copies for "
+              f"{res['render_device'][1]:.4f} ms")
+    print(f"{tag}: sharded render wrapper median "
+          f"{statistics.median(render):.4f} ms (quartiles "
+          f"{np.percentile(render, 25):.4f} / "
+          f"{np.percentile(render, 75):.4f}), device {device}; "
+          f"collectives a render {res['render'][0]['collectives']} "
+          f"({res['render'][0]['collective_bytes']} B), "
+          f"{res['render_collective_ms']:.4f} ms with the card synchronised "
+          f"around each; step (CUDA events, the push unchecked, as the "
+          f"one-card step's) median {statistics.median(step):.4f} ms "
+          f"(quartiles {np.percentile(step, 25):.4f} / "
+          f"{np.percentile(step, 75):.4f}), collectives a step "
+          f"{res['step_collectives']:.1f} ({res['step_collective_bytes']:.0f}"
+          f" B), {res['step_collective_ms']:.4f} ms synchronised [{label}]")
+
+
+def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
+    """One rank of a mesh_path world: joins it
+    (parallel/distributed.py::initialize), builds the mesh, and on
+    configs/double-laser.yaml's two robots at the real size checks:
+    the push into its row block equal in every bit to the same rows of
+    the whole grid's push, and within phase 3's limits of the plain push
+    into the block; the sharded render of each robot's pose
+    against the one-card caster (coordinates within SHARD_COORD_TOL m
+    where both hit, at most SHARD_MASK_FLIPS of the beams' hits
+    different), kernels A, B and C on the row block held against their
+    twins at every launch (ops/kernel_check.py); STEPS_MULTI ICP steps of
+    make_sharded_step within 2.5 cells, the first step's poses within
+    MULTI_TOL of one-card multi_robot_slam_step, and the launches of the
+    steps (A and B once and C ROUNDS times a render, the push once a
+    robot a step on every rank); one TSD and one GN step without a
+    registration error.  Then times: the sharded render's wrapper
+    (host clock), its collectives, its device kernels (torch.profiler),
+    the step's time between CUDA events with the push unchecked (as
+    multi_robot_path's step is timed) and its collectives.  Writes
+    rank<r>.json."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.push import push
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import (
+        KernelCheck,
+        PushCheck,
+        bit_mismatch,
+    )
+    from ohm_tsd_slam_tpu_torch.parallel import (
+        distributed,
+        grid_sharding,
+        make_mesh,
+        make_sharded_step,
+        multi_robot_slam_step,
+        robot_sharding,
+        sharded,
+    )
+    from ohm_tsd_slam_tpu_torch.parallel.mesh import (
+        CollectiveCount,
+        axis_size,
+        shard_rows,
+    )
+    from ohm_tsd_slam_tpu_torch.parallel.shard_raycast import (
+        sharded_raycast,
+    )
+    from ohm_tsd_slam_tpu_torch.registration.ransac import RansacParams
+
+    torch.set_num_threads(1)
+    dev = distributed.local_device()
+    torch.cuda.init()
+    go = os.path.join(out_dir, "go")
+    parent = os.getppid()
+    while not os.path.exists(go):       # the paths before this world run
+        assert os.getppid() == parent, "the run that started this rank ended"
+        time.sleep(0.02)
+    t_rank = time.perf_counter()
+    phases = {}
+
+    def phase(name):
+        phases[name] = round(time.perf_counter() - t_rank, 3)
+
+    assert distributed.initialize(backend=backend), "no world to join"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if shape_arg == "auto":
+        mesh = make_mesh(dev.type)
+    else:
+        sp, dp = (int(x) for x in shape_arg.split("x"))
+        mesh = DeviceMesh(dev.type, torch.arange(world).reshape(sp, dp),
+                          mesh_dim_names=("sp", "dp"))
+    shape = (axis_size(mesh, "sp"), axis_size(mesh, "dp"))
+    out = {"rank": rank, "world": world, "backend": backend,
+           "shape": shape, "device": str(dev)}
+    phase("joined")
+    push_check = PushCheck()
+    cfg, geom, params, gts, grid0, poses0 = multi_robot_setup(dev,
+                                                              push_check)
+    R = poses0.shape[0]
+    limit = 2.5 * cfg.grid.cellsize
+
+    # the push into the row block against the whole grid's push
+    shard0 = grid_sharding(mesh, grid0)
+    y0, h, H = shard_rows(mesh, shard0)
+    ty0 = y0 // shard0.tile_dim
+    data1, mask1 = multi_robot_inputs(gts, 1, dev)
+    pose1 = se2.make(*gts[0][1], device=dev)
+    whole = push_check(grid0, geom, pose1, data1[0], mask1[0])
+    mine = push_check(shard0, geom, pose1, data1[0], mask1[0], ty0=ty0)
+    torch.cuda.synchronize()
+    tiles = slice(ty0, ty0 + shard0.tiles_y)
+    out["push_rows_bits"] = {
+        "tsd": bit_mismatch(mine.tsd, whole.tsd[y0:y0 + h]),
+        "weight": bit_mismatch(mine.weight, whole.weight[y0:y0 + h]),
+        "tile_initw": bit_mismatch(mine.tile_initw, whole.tile_initw[tiles]),
+        "tile_init_equal": bool(torch.equal(mine.tile_init,
+                                            whole.tile_init[tiles])),
+        "rows": [y0, y0 + h], "touched": int(mine.tile_init.sum())}
+    assert not any(out["push_rows_bits"][k] for k in
+                   ("tsd", "weight", "tile_initw")), out["push_rows_bits"]
+    assert out["push_rows_bits"]["tile_init_equal"], out["push_rows_bits"]
+    # and against the plain push into the same block (phase 3's limits)
+    out["push_rows_plain"] = compare_push(
+        push(shard0, geom, pose1, data1[0], mask1[0], ty0=ty0), mine)
+    assert out["push_rows_plain"]["max_abs_err"] <= PUSH_TOL, out
+
+    # the sharded render of each robot against the one-card caster
+    check = KernelCheck()
+    renders = []
+    for r in range(R):
+        pose = se2.make(*gts[r][1], device=dev)
+        with CollectiveCount() as clock:
+            got = sharded_raycast(mesh, shard0, geom, pose,
+                                  kernels=check.kernels)
+        ref = rf.raycast_fast(grid0, geom, pose)
+        both = got.mask & ref.mask
+        gap = (got.coords - ref.coords).abs()[both]
+        renders.append({
+            "hits": int(got.mask.sum()), "one_card_hits": int(ref.mask.sum()),
+            "mask_flips": int((got.mask != ref.mask).sum()),
+            "max_coord_gap": float(gap.max()) if gap.numel() else 0.0,
+            "n_dropped": int(got.n_dropped), "collectives": clock.calls,
+            "collective_bytes": clock.bytes})
+    out["render"] = renders
+    phase("push and render checks")
+    out["kernel_check"] = check.stats
+    for r in renders:
+        assert r["n_dropped"] == 0 and r["hits"] > BEAMS // 2, r
+        assert r["mask_flips"] <= SHARD_MASK_FLIPS * BEAMS, r
+        assert r["max_coord_gap"] <= SHARD_COORD_TOL, r
+    for name in ("segment_layers", "pack_rows", "segment_min"):
+        assert check.stats[name]["calls"] > 0, check.stats
+
+    # STEPS_MULTI ICP steps, the launches counted; the first against the
+    # one-card step
+    ref1 = multi_robot_slam_step(grid0, poses0, data1, mask1, params)
+    best_push = sharded.best_push
+    sharded.best_push = lambda grid: push_check
+    step, place = make_sharded_step(mesh, params)
+    g, p, _, _ = place(grid0, poses0, data1, mask1)
+    errs = [[] for _ in range(R)]
+    reset_counts()
+    with CollectiveCount() as clock:
+        for k in range(1, STEPS_MULTI + 1):
+            data, mask = multi_robot_inputs(gts, k, dev)
+            res = step(g, p, robot_sharding(mesh, data),
+                       robot_sharding(mesh, mask), seed=k)
+            assert int(res.rays_dropped) == 0, k
+            assert not bool(res.reg_error.any()), (k, res.reg_error)
+            if k == 1:
+                out["first_step_gap"] = float(
+                    (res.poses - ref1.poses)[:, :2, 2].abs().max())
+            g, p = res.grid, robot_sharding(mesh, res.poses)
+            poses = res.poses.cpu()
+            for r, gt in enumerate(gts):
+                errs[r].append(math.hypot(float(poses[r, 0, 2]) - gt[k][0],
+                                          float(poses[r, 1, 2]) - gt[k][1]))
+    out["launches"] = read_counts()
+    out["errs"] = [max(e) for e in errs]
+    out["step_collectives"] = clock.calls / STEPS_MULTI
+    out["step_collective_bytes"] = clock.bytes / STEPS_MULTI
+    assert max(out["errs"]) < limit, out["errs"]
+    assert out["first_step_gap"] < MULTI_TOL, out["first_step_gap"]
+    renders_per_rank = STEPS_MULTI * R // shape[1]
+    la = out["launches"]
+    assert la["segment_layers"] == la["pack_rows"] == renders_per_rank, la
+    assert la["segment_min"] == rf.ROUNDS * renders_per_rank, la
+    assert la["push"] == R * STEPS_MULTI, la
+    assert la["window_replay"] == la["window_rounds"] == 0, la
+    assert la["compact_channels"] == 0, la
+
+    phase("ICP steps")
+    # one step each in the modes TSD and GN from the last state
+    data, mask = multi_robot_inputs(gts, STEPS_MULTI, dev)
+    d, m = robot_sharding(mesh, data), robot_sharding(mesh, mask)
+    out["modes"] = {}
+    for mode, name in ((3, "TSD"), (4, "GN")):
+        mparams = dataclasses.replace(
+            params, mode=mode,
+            ransac=RansacParams.from_config(
+                from_flat_params(SINGLE_LASER).robots[0].registration.ransac,
+                geom.angular_res))
+        mstep, _ = make_sharded_step(mesh, mparams)
+        with CollectiveCount() as clock:
+            res = mstep(g, p, d, m, seed=7)
+        moved = float((robot_sharding(mesh, res.poses) - p)[:, :2, 2]
+                      .abs().max())
+        out["modes"][name] = {"reg_error": res.reg_error.tolist(),
+                              "moved": moved, "collectives": clock.calls}
+        assert not bool(res.reg_error.any()), (name, res.reg_error)
+        assert bool(torch.isfinite(res.poses).all()), name
+        assert moved < limit, (name, moved)
+
+    phase("TSD and GN steps")
+    sharded.best_push = best_push       # the timed steps run unchecked
+    # times: the render (host clock between synchronisations), its
+    # collectives and the step's, then the render's device kernels
+    pose = se2.make(*gts[0][STEPS_MULTI], device=dev)
+    shard = g
+
+    def render():
+        return sharded_raycast(mesh, shard, geom, pose)
+
+    render()
+    wrapper = []
+    for _ in range(MESH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        wrapper.append((time.perf_counter() - t0) * 1e3)
+    with CollectiveCount(timed=True) as clock:
+        render()
+    out["render_ms"] = wrapper
+    out["render_collective_ms"] = clock.ms
+    # the step as multi_robot_path's is timed: CUDA events around it, the
+    # push unchecked, from one state
+    out["step_ms"] = time_cuda(
+        lambda: step(g, p, d, m, seed=STEPS_MULTI + 1), n=MESH_TIMED,
+        warmup=1)
+    with CollectiveCount(timed=True) as clock:
+        step(g, p, d, m, seed=STEPS_MULTI + 1)
+    out["step_collective_ms"] = clock.ms
+    phase("timed")
+    found = device_kernels(render)
+    phase("profiled")
+    out["render_device"] = None if found is None else list(found)
+    out["push_check"] = push_check.stats
+    out["phase_s"] = phases
+    dist.barrier()
+    # written whole, then renamed: mesh_path reads it once it exists
+    path = os.path.join(out_dir, f"rank{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+    dist.destroy_process_group()
+    return 0
 
 
 def cli_path(label: str) -> dict:
@@ -2463,6 +2922,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(*sys.argv[2:5])
     from ohm_tsd_slam_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -2537,7 +2998,19 @@ def main() -> int:
     # 4e. the pose batch (P = 128) on the ICP path's grid; the multi-robot
     # step on the double laser's settings; the command line
     batch = batch_check(node, label, caster_stats)
-    multi = multi_robot_path(dev, label, push_check)
+    # 4f's rank processes start here and set up while 4e runs
+    mesh_tmp = tempfile.TemporaryDirectory()
+    started = start_mesh_worlds(mesh_tmp.name)
+    try:
+        multi = multi_robot_path(dev, label, push_check)
+        # 4f. the row-sharded step over meshes of 1, 2 and 4 ranks here
+        mesh = mesh_path(started, label, push_check, caster_stats)
+    finally:
+        stop_mesh_worlds(started)
+        mesh_tmp.cleanup()
+    for name, stats in block_check(node.grid, caster_stats).items():
+        print(f"kernel check A and B on a row block, {name}: "
+              f"{json.dumps(stats)}")
     cli = cli_path(label)
     print(f"kernel check caster, every call: {json.dumps(caster_stats)}")
     # every push of the kernel check and of the five paths: PushCheck
@@ -2578,6 +3051,11 @@ def main() -> int:
             "bound_ms": bounds[bound][0], "bound_by": bounds[bound][1],
             "library_ms": times[library] if library else None, **extra}
 
+    def mesh_launches(name):
+        # per world, each rank's launches in the mesh path's ICP steps
+        return {world: [r["launches"][name] for r in ranks]
+                for world, ranks in mesh.items()}
+
     # every row's `ms` is its wrapper's time, as `plain_ms` is the whole
     # plain function's.  Where the launch was also timed apart from the
     # wrapper's host work, `kernel_ms` is the launch alone on held buffers
@@ -2592,10 +3070,12 @@ def main() -> int:
         kernel_ms=times["push kernel launch alone (tsd_push_f32)"],
         device_ms=times["push kernel device time (tsd_push_f32 replayed "
                         "from a CUDA graph)"],
-        launches_tsd_path=tsd_launches["push"])]
+        launches_tsd_path=tsd_launches["push"],
+        launches_mesh_path=mesh_launches("push"))]
     for (name, fn, replaces), tag in zip(CASTER, "ABCDED"):
         key = next(k for k in times if k.startswith(f"{tag} {name} kernel"))
-        extra = {"launches_tsd_path": tsd_launches[name]}
+        extra = {"launches_tsd_path": tsd_launches[name],
+                 "launches_mesh_path": mesh_launches(name)}
         library = None
         count = launches[name]
         # the first time of that name is the main path's call (for C the
@@ -2638,6 +3118,7 @@ def main() -> int:
                    "stack)")
             extra = {
                 "launches_tsd_path": tsd_launches[name],
+                "launches_mesh_path": mesh_launches(name),
                 "kernel_ms": times[
                     "E compact_channels launch alone (n=16384: "
                     "compact_channels_f32 on held buffers)"],

@@ -49,6 +49,7 @@ constexpr int kAboveFov = -1;
 
 struct PushParams {
   int W, tile_dim, tiles_x, n_beams;
+  int ty0;  // world tile row of the grid's first tile row (a row block)
   float cell_size, tile_size, circumradius, trunc, max_weight;
   float phi_min, angular_res, phi_lo, phi_hi;
   float max_range, min_range, low_refl;
@@ -96,8 +97,12 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
                                 float* __restrict__ tile_initw_out,
                                 float* __restrict__ cull_out, PushParams p) {
   const int tx = blockIdx.x;
-  const int ty = blockIdx.y;
+  const int ty = blockIdx.y;  // the tile row in the arrays
   const int tile = ty * p.tiles_x + tx;
+  // the tile row in the world: positions are formed from it, indices from
+  // ty; the integer offset is added before the conversion to float, so a
+  // row block's cells and decisions equal the whole grid's in every bit
+  const int ty_w = ty + p.ty0;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
   const Pose T = load_pose(pose);
@@ -108,7 +113,7 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
   const float centroid_off = (tile_f + 1.0f) * 0.5f;
   const float cx = (static_cast<float>(tx) * tile_f + centroid_off) *
                    p.cell_size;
-  const float cy = (static_cast<float>(ty) * tile_f + centroid_off) *
+  const float cy = (static_cast<float>(ty_w) * tile_f + centroid_off) *
                    p.cell_size;
   const float cdx = cx - T.t0;
   const float cdy = cy - T.t1;
@@ -121,7 +126,7 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
   // corner back-projection (TsdGridComponent.cpp:66-93): the cell centres
   // of the corner cells (TsdGridPartition.cpp:48-63)
   const float x0 = (static_cast<float>(tx) * tile_f + 0.5f) * p.cell_size;
-  const float y0 = (static_cast<float>(ty) * tile_f + 0.5f) * p.cell_size;
+  const float y0 = (static_cast<float>(ty_w) * tile_f + 0.5f) * p.cell_size;
   const float x1 = x0 + p.tile_size;
   const float y1 = y0 + p.tile_size;
   bool any_visible = false, all_visible = true;
@@ -183,7 +188,8 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
 
   const float eps = -p.cell_size * 0.5f;  // dead surface boost (push.py)
   for (int r = threadIdx.y; r < p.tile_dim; r += blockDim.y) {
-    const int iy = ty * p.tile_dim + r;
+    const int iy = ty * p.tile_dim + r;      // the row in the arrays
+    const int iy_w = ty_w * p.tile_dim + r;  // the row in the world
     for (int c = threadIdx.x; c < p.tile_dim; c += blockDim.x) {
       const int ix = tx * p.tile_dim + c;
       const long cell = static_cast<long>(iy) * p.W + ix;
@@ -206,7 +212,7 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
 
       // back-projection (SensorPolar2D::backProject); NaN = masked beam
       const float x = (static_cast<float>(ix) + 0.5f) * p.cell_size;
-      const float y = (static_cast<float>(iy) + 0.5f) * p.cell_size;
+      const float y = (static_cast<float>(iy_w) + 0.5f) * p.cell_size;
       const int idx = back_project(p, T, x, y);
       const int beam = min(max(idx, 0), p.n_beams - 1);
       const float d = mask[beam] ? data[beam] : nanf("");
@@ -255,17 +261,20 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
 // One push on `stream`, out of place.  In: tsd, weight [H, W] float32
 // row-major, tile_init [TY, TX] bool, tile_initw [TY, TX] float32 (H and W
 // whole multiples of tile_dim), data [n_beams] ranges, mask [n_beams] bool,
-// pose the 3x3 row-major sensor pose; all on the device.  Out: the four
-// arrays of the new grid and, where cull_out is not null, the cull's
-// decisions [TY, TX, 3] (touch, empty_inc as 0/1, part_weight).  The
-// float parameters are the float32 values the plain version's scalars
+// pose the 3x3 row-major sensor pose; all on the device.  The grid may be
+// a row block of a larger one whose first tile row is ty0 (0 for a whole
+// grid): its cells are fused as the same cells of the larger grid.  Out:
+// the four arrays of the new grid and, where cull_out is not null, the
+// cull's decisions [TY, TX, 3] (touch, empty_inc as 0/1, part_weight).
+// The float parameters are the float32 values the plain version's scalars
 // round to.  Returns the cudaError_t of the launch.
 extern "C" int tsd_push_f32(
     const float* tsd_in, const float* weight_in, const bool* tile_init_in,
     const float* tile_initw_in, const float* data, const bool* mask,
     const float* pose, float* tsd_out, float* weight_out,
     bool* tile_init_out, float* tile_initw_out, float* cull_out, int H,
-    int W, int tile_dim, int n_beams, float cell_size, float tile_size,
+    int W, int tile_dim, int n_beams, int ty0, float cell_size,
+    float tile_size,
     float circumradius, float trunc, float max_weight, float phi_min,
     float angular_res, float phi_lo, float phi_hi, float max_range,
     float min_range, float low_refl, void* stream) {
@@ -274,6 +283,7 @@ extern "C" int tsd_push_f32(
   p.tile_dim = tile_dim;
   p.tiles_x = W / tile_dim;
   p.n_beams = n_beams;
+  p.ty0 = ty0;
   p.cell_size = cell_size;
   p.tile_size = tile_size;
   p.circumradius = circumradius;

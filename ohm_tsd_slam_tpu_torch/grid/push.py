@@ -35,14 +35,23 @@ from ohm_tsd_slam_tpu_torch.grid.state import (
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D, back_project
 
 
-def _tile_edges(grid: TsdGrid, dtype) -> torch.Tensor:
+def _tile_rows(grid: TsdGrid, dtype, ty0: int) -> torch.Tensor:
+    """The world tile-row index of each of the grid's tile rows, the
+    first being ty0 (a row block of a larger grid): the integer offset is
+    added before the conversion to `dtype`, so a block's values are the
+    larger grid's in every bit."""
+    return torch.arange(ty0, ty0 + grid.tiles_y, device=grid.tsd.device
+                        ).to(dtype)
+
+
+def _tile_edges(grid: TsdGrid, dtype, ty0: int = 0) -> torch.Tensor:
     """Corner coordinates of every tile, [TY, TX, 4, 2]: the cell centers
     of the corner cells (TsdGridPartition.cpp:48-63)."""
     p = grid.tile_dim
     s = grid.cell_size
     dev = grid.tsd.device
     tx0 = (torch.arange(grid.tiles_x, dtype=dtype, device=dev) * p + 0.5) * s
-    ty0 = (torch.arange(grid.tiles_y, dtype=dtype, device=dev) * p + 0.5) * s
+    ty0 = (_tile_rows(grid, dtype, ty0) * p + 0.5) * s
     txe = tx0 + p * s
     tye = ty0 + p * s
     shape = (grid.tiles_y, grid.tiles_x)
@@ -54,9 +63,10 @@ def _tile_edges(grid: TsdGrid, dtype) -> torch.Tensor:
 
 
 def tile_cull(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
-              data: torch.Tensor, mask: torch.Tensor
+              data: torch.Tensor, mask: torch.Tensor, ty0: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Vectorized TsdGridComponent::isInRange over all tiles.
+    """Vectorized TsdGridComponent::isInRange over all tiles; for a row
+    block of a larger grid whose first tile row is ty0, over its tiles.
 
     Returns:
       touch:       [TY, TX] tile takes part in the fusion update
@@ -73,8 +83,7 @@ def tile_cull(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     # tile centroid/circumradius (TsdGridPartition.cpp:65-70)
     cx = (torch.arange(grid.tiles_x, dtype=dtype, device=dev) * p
           + (p + 1) * 0.5) * s
-    cy = (torch.arange(grid.tiles_y, dtype=dtype, device=dev) * p
-          + (p + 1) * 0.5) * s
+    cy = (_tile_rows(grid, dtype, ty0) * p + (p + 1) * 0.5) * s
     dx = cx[None, :] - tr[0]
     dy = cy[:, None] - tr[1]
     distance = torch.sqrt(dx * dx + dy * dy)
@@ -86,7 +95,7 @@ def tile_cull(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     in_window = (closest <= geom.max_range) & (farthest >= geom.min_range)
 
     # corner back-projection (TsdGridComponent.cpp:66-93)
-    idx_edge = back_project(geom, pose, _tile_edges(grid, dtype))
+    idx_edge = back_project(geom, pose, _tile_edges(grid, dtype, ty0))
     below = idx_edge == -2
     above = idx_edge == -1
     seen = ~below & ~above
@@ -131,7 +140,7 @@ def next_tile_initw(grid: TsdGrid, empty_inc: torch.Tensor) -> torch.Tensor:
 
 
 def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
-         data: torch.Tensor, mask: torch.Tensor) -> TsdGrid:
+         data: torch.Tensor, mask: torch.Tensor, ty0: int = 0) -> TsdGrid:
     """Fuse one masked polar scan into the grid (TsdGrid::push).
 
     Args:
@@ -140,6 +149,10 @@ def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
       pose: (3,3) sensor pose in world frame.
       data: (B,) ranges (inf = no return; see standard_mask).
       mask: (B,) validity mask.
+      ty0: the world tile row of the grid's first tile row, for a row
+        block of a larger grid (parallel/sharded.py): the block's rows
+        come out equal in every bit to the same rows of the larger grid's
+        push.
     Returns:
       the updated grid.
     """
@@ -148,7 +161,8 @@ def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     tr = se2.translation(pose).to(dtype)
     trunc = grid.max_truncation
 
-    touch, empty_inc, part_weight = tile_cull(grid, geom, pose, data, mask)
+    touch, empty_inc, part_weight = tile_cull(grid, geom, pose, data, mask,
+                                              ty0)
 
     # ---- materialize newly-initialized tiles (TsdGridPartition::init) ----
     newly_init = touch & ~grid.tile_init
@@ -163,7 +177,7 @@ def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
                      torch.where(cell_new_plain, 0.0, grid.weight))
 
     # ---- per-cell fusion over touched tiles (TsdGrid.cpp:246-274) -------
-    xs, ys = cell_centers(grid, dtype)
+    xs, ys = cell_centers(grid, dtype, row0=ty0 * grid.tile_dim)
     shape = (grid.cells_y, grid.cells_x)
     cells = torch.stack([xs[None, :].expand(shape),
                          ys[:, None].expand(shape)], dim=-1)

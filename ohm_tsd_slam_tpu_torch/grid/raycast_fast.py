@@ -360,23 +360,31 @@ def _pack_general(grid: TsdGrid, size: int, ks: CasterKernels):
     return ks.compact_channels(mask, chans, size)
 
 
+def extract_endpoints(grid: TsdGrid, max_segments: int,
+                      kernels: CasterKernels):
+    """The isocontour segments of the grid's field, by the fused kernels
+    A and B where the grid's shape allows, else by the dense layers and
+    kernel E (`fused_extraction` chooses): endpoints p0, p1 [S, 2] in the
+    grid's frame, their validity [S] and the int64 count of segments
+    beyond the capacity S."""
+    S = max_segments
+    pack_fn = _pack_fused if fused_extraction(grid) else _pack_general
+    packed, total = pack_fn(grid, S, kernels)
+    n_dropped = (total.to(torch.int64) - S).clamp(min=0)
+    return (packed[0:2, :S].t(), packed[2:4, :S].t(), packed[4, :S] > 0.0,
+            n_dropped)
+
+
 def extract_segments(grid: TsdGrid, max_segments: Optional[int] = None,
                      kernels: Optional[CasterKernels] = None) -> SegmentCache:
-    """The pose-independent extraction for this grid version, by the
-    fused kernels A and B where the grid's shape allows, else by the
-    dense layers and kernel E (`fused_extraction` chooses).  `kernels`
-    stands in for the wrappers of cuda_kernels() (ops/kernel_check.py
-    passes its checked ones)."""
+    """The pose-independent extraction for this grid version
+    (extract_endpoints, then the candidate pack).  `kernels` stands in
+    for the wrappers of cuda_kernels() (ops/kernel_check.py passes its
+    checked ones)."""
     if max_segments is None:
         max_segments = MAX_SEGMENTS   # resolved at call time (patchable)
-    S = max_segments
-    ks = kernels or cuda_kernels()
-    pack_fn = _pack_fused if fused_extraction(grid) else _pack_general
-    packed, total = pack_fn(grid, S, ks)
-    p0 = packed[0:2, :S].t()
-    p1 = packed[2:4, :S].t()
-    valid = packed[4, :S] > 0.0
-    n_dropped = (total.to(torch.int64) - S).clamp(min=0)
+    p0, p1, valid, n_dropped = extract_endpoints(
+        grid, max_segments, kernels or cuda_kernels())
     origin = _pack_origin(grid, p0.dtype, p0.device)
     pack, count = pack_segments(p0 - origin, p1 - origin, valid)
     return SegmentCache(p0, p1, valid, n_dropped, pack, count, origin,

@@ -50,14 +50,18 @@ from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
 
 
-def _bilinear_raw(tsd: torch.Tensor, coords: torch.Tensor, cell_size: float
+def _bilinear_raw(tsd: torch.Tensor, coords: torch.Tensor, cell_size: float,
+                  row0: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Bilinear interpolation on the raw TSD array with NaN-safe taps.
 
     Same cell convention as TsdGrid::coord2Cell (TsdGrid.h:306-340): base
     cell floor(coord/s - 0.5), weights the fractional offsets from its
     centre.  NaN taps are zeroed inside the arithmetic so that no gradient
-    carries a NaN; validity is returned apart.
+    carries a NaN; validity is returned apart.  `tsd` may be a row block
+    whose row 0 is world row `row0` (parallel/shard_raycast.py): the cell
+    and the weights come from the world coordinates as for the whole
+    grid, and the offset is taken off the integer row.
 
     Returns (value, d value / d coords [..., 2], valid): the value and its
     analytic spatial gradient, both 0 where not valid."""
@@ -69,6 +73,7 @@ def _bilinear_raw(tsd: torch.Tensor, coords: torch.Tensor, cell_size: float
     iy = torch.floor(v).to(torch.int64)
     wx = u - ix.to(u.dtype)
     wy = v - iy.to(v.dtype)
+    iy = iy - row0
     valid = (ix >= 0) & (ix < W - 1) & (iy >= 0) & (iy < H - 1)
     flat = tsd.reshape(-1)
     base = iy.clamp(0, H - 2) * W + ix.clamp(0, W - 2)

@@ -108,14 +108,17 @@ def create(config: GridConfig, dtype=torch.float32, device=None) -> TsdGrid:
     )
 
 
-def cell_centers(grid: TsdGrid, dtype=None):
-    """World coordinates of all cell centers: x[W], y[H]."""
+def cell_centers(grid: TsdGrid, dtype=None, row0: int = 0):
+    """World coordinates of all cell centers: x[W], y[H]; the grid's
+    first row is world row `row0` (a row block of a larger grid; the
+    integer offset is added before the conversion to `dtype`)."""
     if dtype is None:
         dtype = grid.tsd.dtype
     s = grid.cell_size
     dev = grid.tsd.device
     xs = (torch.arange(grid.cells_x, dtype=dtype, device=dev) + 0.5) * s
-    ys = (torch.arange(grid.cells_y, dtype=dtype, device=dev) + 0.5) * s
+    ys = (torch.arange(row0, row0 + grid.cells_y, device=dev).to(dtype)
+          + 0.5) * s
     return xs, ys
 
 

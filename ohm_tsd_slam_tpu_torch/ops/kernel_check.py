@@ -175,12 +175,13 @@ class PushCheck:
             "part_weight_mismatches": 0, "part_weight_max_abs_err": 0.0,
             "tile_init_mismatches": 0, "tile_initw_mismatches": 0}
 
-    def __call__(self, grid, geom, pose, data, mask):
+    def __call__(self, grid, geom, pose, data, mask, ty0=0):
         cull = torch.empty((grid.tiles_y, grid.tiles_x, 3),
                            dtype=torch.float32, device=grid.tsd.device)
-        out = push_cuda(grid, geom, pose, data, mask, cull=cull)
+        out = push_cuda(grid, geom, pose, data, mask, cull=cull, ty0=ty0)
         touch, empty_inc, part_weight = tile_cull(
-            grid, geom, pose.to(torch.float32), data.to(torch.float32), mask)
+            grid, geom, pose.to(torch.float32), data.to(torch.float32), mask,
+            ty0)
         found = {
             "touch_flips": (cull[..., 0] > 0) != touch,
             "empty_inc_flips": (cull[..., 1] > 0) != empty_inc,

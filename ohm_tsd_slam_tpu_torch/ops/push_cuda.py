@@ -41,7 +41,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("push")
     fn = lib.tsd_push_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 12 + [_I] * 4 + [_F] * 12 + [_P]
+        fn.argtypes = [_P] * 12 + [_I] * 5 + [_F] * 12 + [_P]
         fn.restype = _I
     return lib
 
@@ -85,14 +85,14 @@ def _check(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
 def launch(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
            data: torch.Tensor, mask: torch.Tensor, out: TsdGrid,
-           cull: Optional[torch.Tensor] = None) -> None:
+           cull: Optional[torch.Tensor] = None, ty0: int = 0) -> None:
     """Launch the kernel on the current stream: reads `grid` and the scan
     (float32 data, bool mask, float32 3x3 pose, all contiguous and on the
     card) and writes the four arrays of `out`, a grid of the same shapes
     that shares no memory with `grid`.  `cull`, float32 [TY, TX, 3], takes
     the cull's decisions (touch, empty_inc as 0/1, part_weight) for a
-    check against grid/push.py::tile_cull.  Raises if the launch is
-    refused; counts it in push_cuda.launches."""
+    check against grid/push.py::tile_cull.  `ty0` as in push_cuda.
+    Raises if the launch is refused; counts it in push_cuda.launches."""
     lib = _lib()
     p, s = grid.tile_dim, grid.cell_size
     with torch.cuda.device(grid.tsd.device):
@@ -106,7 +106,7 @@ def launch(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
             out.tsd.data_ptr(), out.weight.data_ptr(),
             out.tile_init.data_ptr(), out.tile_initw.data_ptr(),
             None if cull is None else cull.data_ptr(),
-            grid.cells_y, grid.cells_x, p, geom.size,
+            grid.cells_y, grid.cells_x, p, geom.size, ty0,
             s, p * s, math.sqrt(2.0) * (p * s) * 0.5, grid.max_truncation,
             grid.max_weight, geom.phi_min, geom.angular_res,
             geom.phi_lower_bound, geom.phi_upper_bound, geom.max_range,
@@ -127,14 +127,15 @@ def empty_like(grid: TsdGrid) -> TsdGrid:
 
 def push_cuda(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
               data: torch.Tensor, mask: torch.Tensor,
-              cull: Optional[torch.Tensor] = None) -> TsdGrid:
+              cull: Optional[torch.Tensor] = None, ty0: int = 0) -> TsdGrid:
     """Fuse one masked polar scan into the grid; same contract as
-    grid/push.py::push.  CUDA grids must be float32.  `cull` as in
+    grid/push.py::push, whose `ty0` (the world tile row of a row block's
+    first tile row) it takes.  CUDA grids must be float32.  `cull` as in
     `launch` (CUDA grids only)."""
     if not grid.tsd.is_cuda:
         if cull is not None:
             raise ValueError("push_cuda: only the kernel writes `cull`")
-        return push(grid, geom, pose, data, mask)
+        return push(grid, geom, pose, data, mask, ty0)
     _check(grid, geom, pose, data, mask)
     if cull is not None and (
             cull.device != grid.tsd.device or cull.dtype != torch.float32
@@ -147,7 +148,7 @@ def push_cuda(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     pose = pose.to(torch.float32).contiguous()
     data = data.to(torch.float32).contiguous()
     out = empty_like(grid)
-    launch(grid, geom, pose, data, mask.contiguous(), out, cull)
+    launch(grid, geom, pose, data, mask.contiguous(), out, cull, ty0)
     return out
 
 

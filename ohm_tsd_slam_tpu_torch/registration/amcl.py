@@ -20,15 +20,14 @@ What differs from the JAX module: every draw takes an explicit
 `torch.Generator` on the tensors' device; its numbers are not
 jax.random's, so the parity tests inject JAX's draws through `AmclInject`.
 The `lax.scan` over the iterations is a Python loop over fixed shapes, and
-nothing is read back to the host.  The `logp_sum_fn` hook of the JAX
-function serves only the row-sharded path and is not ported here.
+nothing is read back to the host.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -72,8 +71,12 @@ class AmclInject(NamedTuple):
 
 def _log_likelihood(grid: TsdGrid, sensor_pose: torch.Tensor,
                     ctrl: torch.Tensor, ctrl_mask: torch.Tensor,
-                    particles: torch.Tensor, zrand: float) -> torch.Tensor:
-    """TSD log-likelihood of each particle pose. particles: [P, 3]."""
+                    particles: torch.Tensor, zrand: float,
+                    logp_sum_fn: Optional[Callable] = None) -> torch.Tensor:
+    """TSD log-likelihood of each particle pose. particles: [P, 3].
+    `logp_sum_fn(world [P, C, 2], ctrl_mask [C]) -> [P]`, when given,
+    replaces the grid taps and the masked sum (parallel/shard_matchers.py).
+    """
     c, s = torch.cos(particles[:, 2]), torch.sin(particles[:, 2])
     # the control points through each particle's perturbation
     x = ctrl[None, :, 0]
@@ -81,6 +84,9 @@ def _log_likelihood(grid: TsdGrid, sensor_pose: torch.Tensor,
     px = c[:, None] * x - s[:, None] * y + particles[:, 0:1]
     py = s[:, None] * x + c[:, None] * y + particles[:, 1:2]
     local = torch.stack([px, py], dim=-1)                # [P, C, 2]
+    if logp_sum_fn is not None:
+        return logp_sum_fn(se2.transform_points(sensor_pose, local),
+                           ctrl_mask)
     world = se2.transform_points(sensor_pose, local.reshape(-1, 2))
     tsd, code = interpolate_bilinear(grid, world)
     logp = torch.where(
@@ -104,7 +110,8 @@ def match_amcl(generator: Optional[torch.Generator], grid: TsdGrid,
                sensor_pose: torch.Tensor, scene: torch.Tensor,
                mask_scene: torch.Tensor,
                params: AmclParams = AmclParams(),
-               inject: Optional[AmclInject] = None) -> torch.Tensor:
+               inject: Optional[AmclInject] = None,
+               logp_sum_fn: Optional[Callable] = None) -> torch.Tensor:
     """Monte-Carlo scene-to-map matching (the working realization of
     AdaptiveMonteCarloMatching::match, AdaptiveMonteCarloMatching.h:35).
 
@@ -117,6 +124,8 @@ def match_amcl(generator: Optional[torch.Generator], grid: TsdGrid,
       mask_scene: (N,) scene validity.
       params: static filter parameters.
       inject: the draws, given (see AmclInject).
+      logp_sum_fn: replaces the grid taps of the likelihood (grid may
+        then be None; see _log_likelihood): the row-sharded path's hook.
     Returns:
       (3,3) SE(2) sensor-frame correction, as the RANSAC matchers return:
       apply as pose' = sensor_pose @ T.
@@ -147,7 +156,7 @@ def match_amcl(generator: Optional[torch.Generator], grid: TsdGrid,
     for it in range(params.iterations):
         decay = params.anneal ** it
         logw = _log_likelihood(grid, sensor_pose, ctrl, ctrl_mask,
-                               particles, params.zrand)
+                               particles, params.zrand, logp_sum_fn)
         w = torch.softmax(logw, dim=0)
         ess = 1.0 / (w * w).sum().clamp(min=1e-30)
         boost = (params.ess_target / (ess / P).clamp(min=1e-6)).clamp(
@@ -164,6 +173,6 @@ def match_amcl(generator: Optional[torch.Generator], grid: TsdGrid,
 
     # final selection: the highest-likelihood particle (no jitter)
     logw = _log_likelihood(grid, sensor_pose, ctrl, ctrl_mask, particles,
-                           params.zrand)
+                           params.zrand, logp_sum_fn)
     best = _at(particles, logw.argmax())
     return se2.make(best[0], best[1], best[2], dtype=dtype)

@@ -20,16 +20,13 @@ sensor-frame correction (new pose = pose @ T, ThreadLocalize.cpp:397).
 What differs from the JAX module: the `lax.scan` over the iterations is a
 Python loop over fixed shapes; the damped 3x3 system is solved in closed
 form (Cramer's rule; `torch.linalg.solve` checks for a singular matrix and
-so waits for the card), and nothing is read back to the host.  The
-`field_fn` and `reduce_fn` hooks and the `max_truncation` argument of the
-JAX function serve only the row-sharded path (parallel/shard_matchers.py)
-and are not ported here.
+so waits for the card), and nothing is read back to the host.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -108,24 +105,39 @@ def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def match_gauss_newton(grid: TsdGrid, sensor_pose: torch.Tensor,
                        scene: torch.Tensor, scene_mask: torch.Tensor,
                        params: GnParams,
-                       T_init: Optional[torch.Tensor] = None) -> GnResult:
+                       T_init: Optional[torch.Tensor] = None,
+                       field_fn: Optional[Callable] = None,
+                       reduce_fn: Optional[Callable] = None,
+                       max_truncation: Optional[float] = None) -> GnResult:
     """Align `scene` (sensor frame, [B,2]) to the TSD surface.
 
     Args:
-      grid: map state.
+      grid: map state (may be None when `field_fn` is given).
       sensor_pose: (3,3) current sensor pose (sensor -> world).
       scene: (B,2) scene points in the sensor frame.
       scene_mask: (B,) validity.
       params: static parameters.
       T_init: optional (3,3) sensor-frame seed (e.g. a RANSAC pre-match).
+      field_fn: optional `x [B,2] -> (val, gx, gy, ok)` replacing the
+        grid taps: the row-sharded path plugs its shard-local evaluation
+        in here (parallel/shard_matchers.py); `ok` must then be False for
+        points the shard does not own.
+      reduce_fn: optional reduction of each iteration's normal equations
+        (H [3,3], b [3], n, wsum, wee), returning the same tuple: a sum
+        over the mesh in the sharded path.
+      max_truncation: the grid's, where `grid` is None.
 
     Returns:
       GnResult with the sensor-frame correction T (new pose = pose @ T).
     """
-    dtype, dev = grid.tsd.dtype, grid.tsd.device
+    dtype = scene.dtype if grid is None else grid.tsd.dtype
+    dev = scene.device
     scene = scene.to(dtype)
     pose = sensor_pose.to(dtype)
-    trunc = grid.max_truncation
+    trunc = grid.max_truncation if max_truncation is None else max_truncation
+    if field_fn is None:
+        def field_fn(x):
+            return _field_value_grad(grid, x)
     eye = torch.eye(3, dtype=dtype, device=dev)
     M = pose @ (eye if T_init is None else T_init.to(dtype))
 
@@ -133,7 +145,7 @@ def match_gauss_newton(grid: TsdGrid, sensor_pose: torch.Tensor,
     w_scene = scene_mask.to(dtype)
     for _ in range(params.iterations):
         x = se2.transform_points(M, scene)               # [B,2] world
-        val, gx, gy, ok = _field_value_grad(grid, x)
+        val, gx, gy, ok = field_fn(x)
         e = val * trunc                                  # residual [m]
         g = torch.stack([gx, gy], dim=-1) * trunc        # d e / d x
 
@@ -158,7 +170,10 @@ def match_gauss_newton(grid: TsdGrid, sensor_pose: torch.Tensor,
         Hm = J.T @ Jw                                    # 3x3
         b = Jw.T @ e                                     # 3
         n = (w > 0).sum()
+        wsum = w.sum()
         wee = (w * e * e).sum()
+        if reduce_fn is not None:
+            Hm, b, n, wsum, wee = reduce_fn((Hm, b, n, wsum, wee))
         Hd = (Hm + params.damping * torch.diag(Hm.diagonal().clamp(min=1e-12))
               + 1e-12 * eye)
         step = _solve3(Hd, -b)
@@ -174,7 +189,7 @@ def match_gauss_newton(grid: TsdGrid, sensor_pose: torch.Tensor,
                           torch.stack([sth, cth, t[1]]),
                           torch.stack([zero, zero, one])])
         M = Tw @ M
-        rms = torch.sqrt(wee / w.sum().clamp(min=1e-12))
+        rms = torch.sqrt(wee / wsum.clamp(min=1e-12))
     T = se2.invert(pose) @ M
     return GnResult(T=T, rms=rms, matches=n,
                     iterations=torch.full((), params.iterations,

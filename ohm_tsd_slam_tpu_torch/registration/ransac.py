@@ -32,9 +32,6 @@ What differs from the JAX module:
   * nothing is read back to the host: an index held in a 0-dim tensor is
     applied with `index_select`, never as a subscript (which would copy it
     to the host first).
-
-The `logp_sum_fn` hook of the JAX `match_tsd` belongs to the row-sharded
-path and is not ported here.
 """
 
 from __future__ import annotations
@@ -559,7 +556,8 @@ def match_tsd(generator: Optional[torch.Generator], grid: TsdGrid,
               mask_model: torch.Tensor, scene: torch.Tensor,
               mask_scene: torch.Tensor, params: RansacParams,
               inject: Optional[RansacInject] = None,
-              return_scores: bool = False):
+              return_scores: bool = False,
+              logp_sum_fn: Optional[Callable] = None):
     """TSD_PDFMatching::match (TSD_PDFMatching.cpp:30-283): candidates
     are scored directly against the map: transform the control set into
     the map frame (TMap = TSensor·T), read the TSD field bilinearly, and
@@ -569,6 +567,11 @@ def match_tsd(generator: Optional[torch.Generator], grid: TsdGrid,
     All K candidates are scored in one pass: without a model axis the
     largest tensor is [K, C, 2] (27 MB at 100 trials, 240 offsets and 140
     control points in float32), so `params.chunk` does not apply.
+
+    `logp_sum_fn(world [K, C, 2], ctrl_mask [C]) -> [K]`, when given,
+    replaces the grid taps and the masked sum (grid may then be None):
+    the row-sharded path plugs its shard-local taps in here
+    (parallel/shard_matchers.py).
     """
     prep = _prepare(generator, model, mask_model, scene, mask_scene, params,
                     inject)
@@ -577,12 +580,15 @@ def match_tsd(generator: Optional[torch.Generator], grid: TsdGrid,
 
     st = _transform_ctrl(prep, prep.phi_cand, prep.t_cand)     # [K, C, 2]
     world = se2.transform_points(sensor_pose, st)
-    tsd, code = interpolate_bilinear(grid, world)
-    logp = torch.where(
-        code == INTERPOLATE_SUCCESS,
-        torch.log((1.0 - (1.0 - zrand) * tsd.abs()).clamp(min=1e-30)),
-        log_zrand)
-    logp_raw = torch.where(prep.ctrl_mask[None, :], logp, 0.0).sum(1)
+    if logp_sum_fn is not None:
+        logp_raw = logp_sum_fn(world, prep.ctrl_mask)
+    else:
+        tsd, code = interpolate_bilinear(grid, world)
+        logp = torch.where(
+            code == INTERPOLATE_SUCCESS,
+            torch.log((1.0 - (1.0 - zrand) * tsd.abs()).clamp(min=1e-30)),
+            log_zrand)
+        logp_raw = torch.where(prep.ctrl_mask[None, :], logp, 0.0).sum(1)
     logp = torch.where(prep.cand_valid, logp_raw, -_BIG)
 
     T = _lex_best((logp,), prep.phi_cand, prep.t_cand, prep.ok)

@@ -197,3 +197,63 @@ def test_all_masked_scan_touches_no_tile(cuda_device):
     assert check.stats["touched"] == check.stats["emptied"] == 0
     assert not bool(out.tile_init.any())
     assert bool(torch.isnan(out.tsd).all()) and not bool(out.weight.any())
+
+
+def _row_block(grid, ty0, tiles):
+    """Tile rows [ty0, ty0 + tiles) of `grid` as a grid of its own (the
+    rank's block of parallel/mesh.py::grid_sharding)."""
+    import dataclasses
+
+    p = grid.tile_dim
+    rows = slice(ty0 * p, (ty0 + tiles) * p)
+    return dataclasses.replace(
+        grid, tsd=grid.tsd[rows].clone(), weight=grid.weight[rows].clone(),
+        tile_init=grid.tile_init[ty0:ty0 + tiles].clone(),
+        tile_initw=grid.tile_initw[ty0:ty0 + tiles].clone())
+
+
+def _assert_rows_equal(block, whole, ty0):
+    """The block's arrays equal the whole grid's rows in every bit."""
+    p, tiles = whole.tile_dim, block.tiles_y
+    for f, rows in (("tsd", p), ("weight", p), ("tile_init", 1),
+                    ("tile_initw", 1)):
+        want = getattr(whole, f)[ty0 * rows:(ty0 + tiles) * rows]
+        got = getattr(block, f)
+        assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes(), f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ty0,tiles", [(0, 2), (3, 2), (6, 2), (2, 1)])
+def test_plain_push_on_a_row_block(dtype, ty0, tiles):
+    """A row block pushed with its first tile row `ty0` is the whole
+    grid's push's rows, in every bit: the culls, the cells, the tiles."""
+    grid = create(CFG, dtype=dtype)
+    for xyt in POSES[:2]:
+        pose, data, mask = _scan(xyt, dtype, "cpu")
+        grid = push(grid, GEOM, pose, data, mask)
+    pose, data, mask = _scan(POSES[2], dtype, "cpu")
+    whole = push(grid, GEOM, pose, data, mask)
+    block = push(_row_block(grid, ty0, tiles), GEOM, pose, data, mask,
+                 ty0=ty0)
+    _assert_rows_equal(block, whole, ty0)
+    assert block.tiles_y == tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ty0,tiles", [(0, 4), (4, 4), (3, 2), (7, 1)])
+def test_kernel_on_a_row_block(cuda_device, ty0, tiles):
+    """The kernel on a row block with its first tile row `ty0` equals the
+    kernel's whole-grid push in those rows in every bit, and its cull
+    equals tile_cull's on the block (PushCheck raises otherwise)."""
+    check = PushCheck()
+    grid = create(CFG, dtype=torch.float32, device=cuda_device)
+    for xyt in POSES[:2]:
+        pose, data, mask = _scan(xyt, torch.float32, cuda_device)
+        grid = check(grid, GEOM, pose, data, mask)
+    pose, data, mask = _scan(POSES[2], torch.float32, cuda_device)
+    whole = check(grid, GEOM, pose, data, mask)
+    block = check(_row_block(grid, ty0, tiles), GEOM, pose, data, mask,
+                  ty0=ty0)
+    torch.cuda.synchronize()
+    _assert_rows_equal(block, whole, ty0)
+    assert check.stats["touched"] > 0
