@@ -85,15 +85,18 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       gloo (NCCL refuses two ranks on one card).  Each rank checks its
       push into its row block against the whole grid's push, bit for bit;
       the sharded render of each robot against the one-card caster
-      (coordinates within SHARD_COORD_TOL, hits within SHARD_MASK_FLIPS),
-      kernels A, B and C on the 513-row block against their twins; 20
-      ICP steps of make_sharded_step on configs/double-laser.yaml's two
-      robots within 2.5 cells, the first against one-card
-      multi_robot_slam_step within MULTI_TOL, with their launches (A and
-      B once and C four times a render, the push once a robot a step on
-      every rank); one TSD and one GN step; then prints the render's
-      wrapper and device time, the collectives a render and a step with
-      their time, and the step's time.  Kernels A and B also run on row
+      (coordinates within SHARD_COORD_TOL, hits within SHARD_MASK_FLIPS,
+      and whether every bit is equal), kernels A, B and C on the 513-row
+      block and D on the rank's halo'd block (every round) against their
+      twins, max_abs_err 0; 20 ICP steps of make_sharded_step on
+      configs/double-laser.yaml's two robots within 2.5 cells, the first
+      against one-card multi_robot_slam_step within MULTI_TOL, with
+      their launches (A and B once and C and D four times a render, the
+      push once a robot a step on every rank); one TSD and one GN step;
+      then prints the render's wrapper and device time and device-kernel
+      count beside raycast_fast's on the whole grid in the same world,
+      the collectives a render and a step with their time, and the
+      step's time (against the one-card step's in this run).  Kernels A and B also run on row
       blocks of 257 and 513 rows of the ICP path's grid against their
       twins;
 5. times: first a check that extract_segments, localize_step (in every
@@ -323,15 +326,10 @@ def compact_launch(mask, chans, size):
     """Kernel E's launch alone on buffers held here, as a closure."""
     from ohm_tsd_slam_tpu_torch.ops import compact_channels_cuda as cc
 
-    dev = mask.device
-    packed = torch.empty((len(chans) + 1, size + cc.ROW),
-                         dtype=torch.float32, device=dev)
-    row_cnt = torch.empty(mask.numel() // cc.ROW, dtype=torch.int32,
-                          device=dev)
-    status = torch.empty(cc.status_words(row_cnt.numel()), dtype=torch.int64,
-                         device=dev)
-    total = row_cnt.new_empty(1)
-    return lambda: cc.launch(mask, chans, packed, row_cnt, status, total)
+    buf = cc.empty_pack(mask.device, mask.numel() // cc.ROW, size,
+                        len(chans) + 1)
+    total = torch.empty(1, dtype=torch.int32, device=mask.device)
+    return lambda: cc.launch(mask, chans, buf, total)
 
 
 # the kernel's largest tsd gap to the plain push (its error before it took
@@ -1402,24 +1400,44 @@ def peak_mib(fn) -> tuple:
     return (torch.cuda.max_memory_allocated() - held) / 2**20, held / 2**20
 
 
-def device_kernels(fn):
-    """(device kernels and copies launched, their summed device time in
-    ms) of one fn(), from torch.profiler after a warm-up call; None where
-    the profiler shows no device activity."""
+MARKER = "spin_kernel"       # torch.cuda._sleep's kernel: splits a trace
+
+
+def device_kernels(*fns) -> list:
+    """For each fn, (device kernels and copies launched, their summed
+    device time in ms) of one fn(), from one torch.profiler session (its
+    set-up costs seconds) after a warm-up call of each: the calls run one
+    after another with the card synchronised and a marker kernel
+    (torch.cuda._sleep, not counted) between two, so the device events
+    split in time order.  None for each where the profiler shows no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+        for i, fn in enumerate(fns):
+            if i:
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    on_device = sorted((e for e in prof.events()
+                        if e.device_type == DeviceType.CUDA),
+                       key=lambda e: e.time_range.start)
     if not on_device:
-        return None
-    return len(on_device), sum(e.device_time for e in on_device) * 1e-3
+        return [None] * len(fns)
+    parts = [[]]
+    for e in on_device:
+        if MARKER in e.name:
+            parts.append([])
+        else:
+            parts[-1].append(e)
+    assert len(parts) == len(fns), (len(parts), len(fns))
+    return [(len(p), sum(e.device_time for e in p) * 1e-3) for p in parts]
 
 
 def device_kernel_counts(node, label: str, more: dict) -> None:
@@ -1445,7 +1463,7 @@ def device_kernel_counts(node, label: str, more: dict) -> None:
             ("localize_step", lambda: localize_step(
                 grid, pose, loc.last_pose, data, mask, loc.params,
                 segments=seg)), *more.items()):
-        found = device_kernels(fn)
+        (found,) = device_kernels(fn)
         print(f"device kernels {name}: " + (
             "not measured (the profiler shows no device activity)"
             if found is None else
@@ -2363,22 +2381,28 @@ def report_mesh_rank(name: str, res: dict, label: str) -> None:
           f"step {res['first_step_gap']:.3e} m (within {MULTI_TOL}); kernel "
           f"launches {json.dumps(res['launches'])}; TSD and GN steps "
           f"{json.dumps(res['modes'])}")
-    render, step = res["render_ms"], res["step_ms"]
-    device = ("not measured (the profiler shows no device activity)"
-              if res["render_device"] is None else
-              f"{res['render_device'][0]} device kernels and copies for "
-              f"{res['render_device'][1]:.4f} ms")
-    print(f"{tag}: sharded render wrapper median "
-          f"{statistics.median(render):.4f} ms (quartiles "
-          f"{np.percentile(render, 25):.4f} / "
-          f"{np.percentile(render, 75):.4f}), device {device}; "
-          f"collectives a render {res['render'][0]['collectives']} "
+    def device(found):
+        return ("not measured (the profiler shows no device activity)"
+                if found is None else
+                f"{found[0]} device kernels and copies for "
+                f"{found[1]:.4f} ms")
+
+    def spread(ms):
+        return (f"median {statistics.median(ms):.4f} ms (quartiles "
+                f"{np.percentile(ms, 25):.4f} / {np.percentile(ms, 75):.4f})")
+
+    print(f"{tag}: sharded render wrapper {spread(res['render_ms'])}, "
+          f"device {device(res['render_device'])}; raycast_fast on the "
+          f"whole grid in this world, extraction inline "
+          f"{spread(res['one_card_ms'])}, device "
+          f"{device(res['one_card_device'])}; with cached segments "
+          f"{spread(res['one_card_cached_ms'])}, device "
+          f"{device(res['one_card_cached_device'])} [{label}]")
+    print(f"{tag}: collectives a render {res['render'][0]['collectives']} "
           f"({res['render'][0]['collective_bytes']} B), "
           f"{res['render_collective_ms']:.4f} ms with the card synchronised "
           f"around each; step (CUDA events, the push unchecked, as the "
-          f"one-card step's) median {statistics.median(step):.4f} ms "
-          f"(quartiles {np.percentile(step, 25):.4f} / "
-          f"{np.percentile(step, 75):.4f}), collectives a step "
+          f"one-card step's) {spread(res['step_ms'])}, collectives a step "
           f"{res['step_collectives']:.1f} ({res['step_collective_bytes']:.0f}"
           f" B), {res['step_collective_ms']:.4f} ms synchronised [{label}]")
 
@@ -2392,16 +2416,19 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
     into the block; the sharded render of each robot's pose
     against the one-card caster (coordinates within SHARD_COORD_TOL m
     where both hit, at most SHARD_MASK_FLIPS of the beams' hits
-    different), kernels A, B and C on the row block held against their
-    twins at every launch (ops/kernel_check.py); STEPS_MULTI ICP steps of
-    make_sharded_step within 2.5 cells, the first step's poses within
-    MULTI_TOL of one-card multi_robot_slam_step, and the launches of the
-    steps (A and B once and C ROUNDS times a render, the push once a
-    robot a step on every rank); one TSD and one GN step without a
-    registration error.  Then times: the sharded render's wrapper
-    (host clock), its collectives, its device kernels (torch.profiler),
-    the step's time between CUDA events with the push unchecked (as
-    multi_robot_path's step is timed) and its collectives.  Writes
+    different), kernels A, B and C on the row block and D on the halo'd
+    block held against their twins at every launch (ops/kernel_check.py,
+    max_abs_err 0); STEPS_MULTI ICP steps of make_sharded_step within 2.5
+    cells, the first step's poses within MULTI_TOL of one-card
+    multi_robot_slam_step, and the launches of the steps (A and B once
+    and C and D ROUNDS times a render, the push once a robot a step on
+    every rank); one TSD and one GN step without a registration error.
+    Then times: the sharded render's wrapper (host clock), its
+    collectives, the step's time between CUDA events with the push
+    unchecked (as multi_robot_path's step is timed) and its collectives,
+    raycast_fast on the whole grid (gathered) at the same pose, with the
+    extraction inline and cached; then the device kernels of the render
+    and of both raycast_fast calls (torch.profiler, one session).  Writes
     rank<r>.json."""
     import dataclasses
 
@@ -2428,6 +2455,7 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
     )
     from ohm_tsd_slam_tpu_torch.parallel.mesh import (
         CollectiveCount,
+        all_gather,
         axis_size,
         shard_rows,
     )
@@ -2508,6 +2536,10 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
             "hits": int(got.mask.sum()), "one_card_hits": int(ref.mask.sum()),
             "mask_flips": int((got.mask != ref.mask).sum()),
             "max_coord_gap": float(gap.max()) if gap.numel() else 0.0,
+            "bit_equal_one_card": all(
+                bit_mismatch(getattr(got, f), getattr(ref, f)) == 0.0
+                for f in ("coords", "normals", "ranges"))
+            and bool(torch.equal(got.mask, ref.mask)),
             "n_dropped": int(got.n_dropped), "collectives": clock.calls,
             "collective_bytes": clock.bytes})
     out["render"] = renders
@@ -2517,8 +2549,10 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
         assert r["n_dropped"] == 0 and r["hits"] > BEAMS // 2, r
         assert r["mask_flips"] <= SHARD_MASK_FLIPS * BEAMS, r
         assert r["max_coord_gap"] <= SHARD_COORD_TOL, r
-    for name in ("segment_layers", "pack_rows", "segment_min"):
+    for name in ("segment_layers", "pack_rows", "segment_min",
+                 "window_replay"):
         assert check.stats[name]["calls"] > 0, check.stats
+        assert check.stats[name]["max_abs_err"] == 0.0, check.stats
 
     # STEPS_MULTI ICP steps, the launches counted; the first against the
     # one-card step
@@ -2554,8 +2588,9 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
     la = out["launches"]
     assert la["segment_layers"] == la["pack_rows"] == renders_per_rank, la
     assert la["segment_min"] == rf.ROUNDS * renders_per_rank, la
+    assert la["window_replay"] == rf.ROUNDS * renders_per_rank, la
     assert la["push"] == R * STEPS_MULTI, la
-    assert la["window_replay"] == la["window_rounds"] == 0, la
+    assert la["window_rounds"] == 0, la
     assert la["compact_channels"] == 0, la
 
     phase("ICP steps")
@@ -2610,10 +2645,36 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
     with CollectiveCount(timed=True) as clock:
         step(g, p, d, m, seed=STEPS_MULTI + 1)
     out["step_collective_ms"] = clock.ms
+    # the one-card caster on the same (whole) grid state and pose in this
+    # world: extraction inline (the sharded render's work) and cached
+    W = shard.tsd.shape[1]
+    whole = dataclasses.replace(grid0, tsd=all_gather(
+        shard.tsd, mesh, "sp").reshape(-1, W))
+    seg = rf.extract_segments(whole)
+
+    def one_card():
+        return rf.raycast_fast(whole, geom, pose)
+
+    def one_card_cached():
+        return rf.raycast_fast(whole, geom, pose, segments=seg)
+
+    for key, fn in (("one_card_ms", one_card),
+                    ("one_card_cached_ms", one_card_cached)):
+        fn()
+        wall = []
+        for _ in range(MESH_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        out[key] = wall
     phase("timed")
-    found = device_kernels(render)
+    found = device_kernels(render, one_card, one_card_cached)
     phase("profiled")
-    out["render_device"] = None if found is None else list(found)
+    out["render_device"], out["one_card_device"], \
+        out["one_card_cached_device"] = (
+            None if f is None else list(f) for f in found)
     out["push_check"] = push_check.stats
     out["phase_s"] = phases
     dist.barrier()
@@ -3034,6 +3095,21 @@ def main() -> int:
     more, more_facts = batch_times(node, batch, multi, label)
     times.update(more)
     facts.update(more_facts)
+    one_step = times["multi_robot_slam_step (2 robots, ICP; CUDA events "
+                     "around the step, which reads the drop count once)"]
+    for world, ranks in mesh.items():
+        for r in ranks:
+            render = statistics.median(r["render_ms"])
+            inline = statistics.median(r["one_card_ms"])
+            cached = statistics.median(r["one_card_cached_ms"])
+            step = statistics.median(r["step_ms"])
+            print(f"mesh {world} rank {r['rank']}: sharded render "
+                  f"{render:.4f} ms, {render / cached:.2f}x raycast_fast's "
+                  f"with cached segments ({cached:.4f} ms) and "
+                  f"{render / inline:.2f}x its with the extraction inline "
+                  f"({inline:.4f} ms) in the same world; step {step:.4f} ms "
+                  f"against the one-card step's {one_step:.4f} ms in this "
+                  f"run (gap {step - one_step:.4f} ms) [{label}]")
     print(f"cli run: process_scan median {cli['per_scan_median_ms']:.4f} ms "
           f"a scan over {cli['scans'] - 1} scans (host clock, printed by the "
           f"run), max |pose - truth| {cli['max_err']:.6f} m [{label}]")

@@ -20,13 +20,15 @@
 // warp loads a row's four mask words and the next row's before it places
 // the first, so the loads of one row hide behind the stores of another.
 //
+// A launch of one tile needs neither: its block takes tile 0 without a
+// ticket, its prefix is 0 and it stores no status word (the look-back's
+// waits and stores cost more there than they save, csrc/compact_channels.cu).
+//
 // The caller provides `status`: scan_tiles(rows) + 1 words of 64 bits, ALL
-// ZERO when the kernel starts (the last word is the ticket).  Launch
-// scan_tiles(rows) blocks of kTileRows threads.  Each caller zeroes them in a
-// launch it makes anyway: csrc/pack_rows.cu keeps them behind its pack and
-// its one memset covers both; csrc/compact_channels.cu takes them as a
-// scratch of their own beside its row counts, and its count kernel, which
-// runs before the scatter, stores the zeros.
+// ZERO when the kernel starts (the last word is the ticket); one tile reads
+// none.  Launch scan_tiles(rows) blocks of kTileRows threads.  Both callers
+// keep the words behind their pack, so the one memset that zeroes the pack
+// zeroes them too.
 
 #pragma once
 
@@ -69,28 +71,37 @@ struct RowPrefix {
   int off;
 };
 
-// Every thread of a block of kTileRows threads calls this once.  Stores the
-// sum of all counts to *total (the block of the last tile does).
-__device__ RowPrefix tile_prefix(const int* __restrict__ row_cnt, int rows,
-                                 unsigned long long* status,
-                                 int* __restrict__ total) {
+// The tile this block takes, the same in every thread: by the atomic ticket
+// in status[tiles] (blocks start in no set order), or 0 for a single tile.
+// Every thread of the block calls this once.
+__device__ __forceinline__ int take_tile(unsigned long long* status,
+                                         int tiles) {
+  __shared__ int s_tile;
+  if (tiles == 1) return 0;  // uniform over the launch
+  if (threadIdx.x == 0)
+    s_tile = static_cast<int>(
+        atomicAdd(reinterpret_cast<unsigned int*>(status + tiles), 1u));
+  __syncthreads();
+  return s_tile;
+}
+
+// The prefix of thread t's row tile * kTileRows + t, whose count `cnt` the
+// caller gives (0 past `rows`).  Every thread of a block of kTileRows
+// threads calls this once, with the block's take_tile().  Stores the sum of
+// all counts to *total (the block of the last tile does).
+__device__ RowPrefix row_prefix(int tile, int cnt, int rows,
+                                unsigned long long* status,
+                                int* __restrict__ total) {
   constexpr unsigned kFull = 0xffffffffu;
   constexpr int kTileWarps = kTileRows / 32;
-  __shared__ int s_tile;
   __shared__ int s_base;
   __shared__ int s_warp[kTileWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int tiles = scan_tiles(rows);
-
-  if (threadIdx.x == 0)
-    s_tile = static_cast<int>(
-        atomicAdd(reinterpret_cast<unsigned int*>(status + tiles), 1u));
-  __syncthreads();
-  const int tile = s_tile;
   RowPrefix r;
   r.row = tile * kTileRows + static_cast<int>(threadIdx.x);
-  r.cnt = r.row < rows ? row_cnt[r.row] : 0;
+  r.cnt = cnt;
 
   int inc = r.cnt;  // inclusive scan over the warp
 #pragma unroll
@@ -138,7 +149,7 @@ __device__ RowPrefix tile_prefix(const int* __restrict__ row_cnt, int rows,
       }
     }
     if (lane == 0) {
-      status_store(status + tile, kTilePrefix, base + sum);
+      if (tiles > 1) status_store(status + tile, kTilePrefix, base + sum);
       s_base = base;
       if (tile == tiles - 1) *total = base + sum;
     }
@@ -148,22 +159,37 @@ __device__ RowPrefix tile_prefix(const int* __restrict__ row_cnt, int rows,
   return r;
 }
 
-// Every thread of the block calls this once, after tile_prefix.  For every
-// set lane f (flat index, is_set(f) true) of the tile's rows, in flat order,
-// calls place(f, slot) with slot = the count of set lanes before f, as long
-// as slot < cap.  Rows without a set lane are never read.
-template <typename IsSet, typename Place>
-__device__ __forceinline__ void place_rows(const RowPrefix& mine, int cap,
-                                           IsSet is_set, Place place) {
+// Every thread of a block of kTileRows threads calls this once: the
+// prefix of its row of the tile the block takes, from the row counts in
+// global memory.
+__device__ __forceinline__ RowPrefix tile_prefix(
+    const int* __restrict__ row_cnt, int rows, unsigned long long* status,
+    int* __restrict__ total) {
+  const int tile = take_tile(status, scan_tiles(rows));
+  const int row = tile * kTileRows + static_cast<int>(threadIdx.x);
+  return row_prefix(tile, row < rows ? row_cnt[row] : 0, rows, status,
+                    total);
+}
+
+// The tile's rows that hold a set lane and start inside the pack, in row
+// order: row[0..n) their threads' indices in the tile, off[t] the offset of
+// thread t's row.  Every thread of the block calls this once, after its
+// prefix.
+struct RowList {
+  const int* row;
+  const int* off;
+  int n;
+};
+
+__device__ __forceinline__ RowList list_rows(const RowPrefix& mine,
+                                             int cap) {
   constexpr unsigned kFull = 0xffffffffu;
   constexpr int kTileWarps = kTileRows / 32;
-  constexpr int kLanes = 128;  // lanes a row
   __shared__ int s_off[kTileRows];
   __shared__ int s_list[kTileRows];
   __shared__ int s_n[kTileWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // rows that hold a set lane and start inside the pack
   const bool todo = mine.cnt > 0 && mine.off < cap;
   const unsigned bal = __ballot_sync(kFull, todo);
   if (lane == 0) s_n[warp] = __popc(bal);
@@ -180,6 +206,25 @@ __device__ __forceinline__ void place_rows(const RowPrefix& mine, int cap,
     s_list[before + __popc(bal & ((1u << lane) - 1u))] =
         static_cast<int>(threadIdx.x);
   __syncthreads();
+  return RowList{s_list, s_off, n_list};
+}
+
+// Every thread of the block calls this once, after tile_prefix.  For every
+// set lane f (flat index, is_set(f) true) of the tile's rows, in flat order,
+// calls place(f, slot) with slot = the count of set lanes before f, as long
+// as slot < cap.  Rows without a set lane are never read.
+template <typename IsSet, typename Place>
+__device__ __forceinline__ void place_rows(const RowPrefix& mine, int cap,
+                                           IsSet is_set, Place place) {
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int kTileWarps = kTileRows / 32;
+  constexpr int kLanes = 128;  // lanes a row
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const RowList list = list_rows(mine, cap);
+  const int* s_list = list.row;
+  const int* s_off = list.off;
+  const int n_list = list.n;
 
   const long row0 = mine.row - static_cast<int>(threadIdx.x);  // the tile's
   bool cur[4] = {false, false, false, false};

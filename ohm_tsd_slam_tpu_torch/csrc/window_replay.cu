@@ -58,6 +58,12 @@
 // A pose batch gives each pose its own sensor translation: `tr` is a table
 // of P rows and beam b reads row b / beams_per_pose (sensor_origin).
 //
+// Round 1 also replays on a row block of the grid (the halo'd block of a
+// row-sharded rank, parallel/shard_raycast.py): the field's row 0 is world
+// row `row0`, the base cell must lie in the block's world rows [row0,
+// row0 + H) and a tap past the block reads NaN, as past the grid.  With
+// row0 = 0 every operation is the whole grid's.
+//
 // Bound.  Latency: 32 tap loads a beam from L2, then 16 for the normal.
 //
 // Built with -fmad=false and IEEE division and sqrt (ops/_build.py): the
@@ -76,26 +82,35 @@ constexpr float kBackoff = 2.0f;   // grid/raycast_fast.py::BACKOFF
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRoundsThreads = 1024;
 
+// The field: H rows of W cells whose row 0 is world row row0 (0 for the
+// whole grid; a row-sharded rank's halo block starts below its rows,
+// parallel/shard_raycast.py).  Cells and weights come from the world
+// coordinates; a tap at world row iy reads the field's row iy - row0.
 struct Field {
   const float* tsd;
   int H, W;
   float s;
+  int row0;
 };
 
+// the cell at column ix of world row iy (iy >= row0): NaN past the field
 __device__ __forceinline__ float cell(const Field& g, int ix, int iy) {
-  return (ix < g.W && iy < g.H) ? g.tsd[static_cast<long>(iy) * g.W + ix]
+  const int by = iy - g.row0;
+  return (ix < g.W && by < g.H) ? g.tsd[static_cast<long>(by) * g.W + ix]
                                 : NAN;
 }
 
 // interpolate_bilinear at world (px, py): NaN when the base cell is off the
-// grid or a tap is NaN or off the grid
+// field or a tap is NaN or off the field
 __device__ __forceinline__ float bilinear(const Field& g, float px,
                                           float py) {
   const float u = px / g.s - 0.5f;
   const float v = py / g.s - 0.5f;
   const float fx = floorf(u);
   const float fy = floorf(v);
-  if (!(fx >= 0.0f && fx < g.W && fy >= 0.0f && fy < g.H)) return NAN;
+  if (!(fx >= 0.0f && fx < g.W && fy >= static_cast<float>(g.row0) &&
+        fy < static_cast<float>(g.row0 + g.H)))
+    return NAN;
   const float wx = u - fx;
   const float wy = v - fy;
   const int ix = static_cast<int>(fx);
@@ -341,11 +356,13 @@ __global__ void __launch_bounds__(kRoundsThreads)
 
 }  // namespace
 
-// Round 1.  tsd [H, W] float32; k (the candidate step), idx_min, idx_max
-// [N]; ray [N, 2]; active [N] bool; tr [N / beams_per_pose, 2] (sensor
-// translations, world frame, a row a pose); out [N, 8] float32.  All on the
-// device, launched on `stream`.  Returns the cudaError_t of the launch.
-extern "C" int window_replay_f32(const float* tsd, int H, int W, float s,
+// Round 1.  tsd [H, W] float32 whose row 0 is world row row0 (0: the
+// whole grid); k (the candidate step), idx_min, idx_max [N]; ray [N, 2];
+// active [N] bool; tr [N / beams_per_pose, 2] (sensor translations, world
+// frame, a row a pose); out [N, 8] float32.  All on the device, launched
+// on `stream`.  Returns the cudaError_t of the launch.
+extern "C" int window_replay_f32(const float* tsd, int H, int W, int row0,
+                                 float s,
                                  const float* k, const float* ray,
                                  const float* idx_min, const float* idx_max,
                                  const bool* active, const float* tr,
@@ -353,7 +370,7 @@ extern "C" int window_replay_f32(const float* tsd, int H, int W, float s,
                                  void* stream) {
   if (beams_per_pose <= 0 || N % beams_per_pose != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Field g{tsd, H, W, s};
+  const Field g{tsd, H, W, s, row0};
   constexpr int kThreads = 128;
   const long threads = static_cast<long>(N) * kWindow;
   window_replay_kernel<<<static_cast<unsigned>((threads + kThreads - 1) /
@@ -400,7 +417,7 @@ extern "C" int window_rounds_f32(const float* tsd, int H, int W, float s,
   if (beams_per_pose <= 0 || N % beams_per_pose != 0 || blocks < 1 ||
       (blocks > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Field g{tsd, H, W, s};
+  Field g{tsd, H, W, s, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int chunk = (N + blocks - 1) / blocks;
   if (blocks == 1) {

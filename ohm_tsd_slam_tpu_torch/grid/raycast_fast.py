@@ -463,14 +463,17 @@ def segment_min_plain(pack: torch.Tensor, count: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
-def _taps(tsd: torch.Tensor, s: float, px: torch.Tensor, py: torch.Tensor):
+def _taps(tsd: torch.Tensor, s: float, px: torch.Tensor, py: torch.Tensor,
+          row0: int = 0):
     """Bilinear value at world points (NaN = invalid): the taps of
     grid/interpolate.py::interpolate_bilinear in its summation order, out
     of bounds reading NaN, without its tile check (a cell of a tile that
     was never initialized is NaN in the dense field, so the blend is NaN
     there anyway).  The cell size divides as a tensor: on CUDA, torch
     turns a division by a Python number into a product with its
-    reciprocal, which is not the kernel's (or the CPU's) IEEE quotient."""
+    reciprocal, which is not the kernel's (or the CPU's) IEEE quotient.
+    `tsd` may be a row block whose row 0 is world row `row0`: the base
+    cell must lie in its world rows and a tap past it reads NaN."""
     H, W = tsd.shape
     s_t = torch.full((), s, dtype=px.dtype, device=px.device)
     u = px / s_t - 0.5
@@ -479,9 +482,9 @@ def _taps(tsd: torch.Tensor, s: float, px: torch.Tensor, py: torch.Tensor):
     fy = torch.floor(v)
     wx = u - fx
     wy = v - fy
-    base_ok = (fx >= 0) & (fx < W) & (fy >= 0) & (fy < H)
+    base_ok = (fx >= 0) & (fx < W) & (fy >= row0) & (fy < row0 + H)
     ix = torch.where(base_ok, fx, 0.0).to(torch.int64)
-    iy = torch.where(base_ok, fy, 0.0).to(torch.int64)
+    iy = torch.where(base_ok, fy - row0, 0.0).to(torch.int64)
     flat = tsd.reshape(-1)
 
     def tap(dx, dy):
@@ -506,8 +509,8 @@ def window_start(k: torch.Tensor, idx_min: torch.Tensor) -> torch.Tensor:
 
 def window_replay_plain(grid: TsdGrid, k: torch.Tensor, ray: torch.Tensor,
                         idx_min: torch.Tensor, idx_max: torch.Tensor,
-                        active: torch.Tensor, tr: torch.Tensor
-                        ) -> torch.Tensor:
+                        active: torch.Tensor, tr: torch.Tensor,
+                        row0: int = 0) -> torch.Tensor:
     """Twin of csrc/window_replay.cu's round 1 (TPU kernels 5 and 6's
     contract): the exact-march replay over WINDOW samples from
     t = window_start(k, idx_min) per beam, the sub-cell interpolation of
@@ -518,7 +521,9 @@ def window_replay_plain(grid: TsdGrid, k: torch.Tensor, ray: torch.Tensor,
     flags); zeros for inactive beams.  Without an event the row holds the
     geometry of the window's first sample pair, as the JAX package's
     _window_events does.  `tr` is the table of sensor translations
-    (`beam_origins`)."""
+    (`beam_origins`).  `grid` may be a row block of the grid whose row 0
+    is world row `row0` (a row-sharded rank's halo block,
+    parallel/shard_raycast.py): every coordinate stays a world one."""
     s = grid.cell_size
     tsd = grid.tsd
     dtype = tsd.dtype
@@ -527,17 +532,17 @@ def window_replay_plain(grid: TsdGrid, k: torch.Tensor, ray: torch.Tensor,
     t_w = window_start(k, idx_min)[:, None] + j[None, :]  # [N, W]
     px = trx + t_w * ray[:, 0:1]
     py = try_ + t_w * ray[:, 1:2]
-    v = _taps(tsd, s, px, py)
+    v = _taps(tsd, s, px, py, row0)
     hit, any_ev, k_ev, interp = first_event(v, t_w, idx_max)
     pos_x = torch.gather(px[:, 1:], 1, k_ev)[:, 0]
     pos_y = torch.gather(py[:, 1:], 1, k_ev)[:, 0]
 
     cx = pos_x + ray[:, 0] * (interp - 1.0)
     cy = pos_y + ray[:, 1] * (interp - 1.0)
-    xp = _taps(tsd, s, cx + s, cy)
-    xm = _taps(tsd, s, cx - s, cy)
-    yp = _taps(tsd, s, cx, cy + s)
-    ym = _taps(tsd, s, cx, cy - s)
+    xp = _taps(tsd, s, cx + s, cy, row0)
+    xm = _taps(tsd, s, cx - s, cy, row0)
+    yp = _taps(tsd, s, cx, cy + s, row0)
+    ym = _taps(tsd, s, cx, cy - s, row0)
     n_ok = ~(torch.isnan(xp) | torch.isnan(xm) | torch.isnan(yp)
              | torch.isnan(ym))
     nx = xp - xm

@@ -20,7 +20,7 @@ import torch
 
 from ohm_tsd_slam_tpu_torch.grid.compact import pack_channels_rows
 from ohm_tsd_slam_tpu_torch.ops import _build
-from ohm_tsd_slam_tpu_torch.ops.pack_rows_cuda import status_words
+from ohm_tsd_slam_tpu_torch.ops.pack_rows_cuda import empty_pack
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,8 +32,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("compact_channels")
     fn = lib.compact_channels_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, ctypes.POINTER(_P), _I, _I, _P, _P, _P, _P,
-                       _I, _P]
+        fn.argtypes = [_P, _I, ctypes.POINTER(_P), _I, _I, _P, _I, _P, _I,
+                       _P]
         fn.restype = _I
     return lib
 
@@ -68,36 +68,34 @@ def compact_channels(mask: torch.Tensor, channels: Sequence[torch.Tensor],
                 or not c.is_contiguous()):
             raise ValueError("compact_channels: every channel must be a "
                              f"contiguous tensor of {n} on {mask.device}")
-    cap = size + ROW
-    dev = mask.device
-    packed = torch.empty((len(channels) + 1, cap), dtype=torch.float32,
-                         device=dev)
-    row_cnt = torch.empty(n // ROW, dtype=torch.int32, device=dev)
-    status = torch.empty(status_words(n // ROW), dtype=torch.int64,
-                         device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
-    launch(mask, channels, packed, row_cnt, status, total)
-    return packed, total[0]
+    if mask.dtype == torch.bool and mask.data_ptr() % 16:
+        mask = mask.clone()      # the kernel reads bytes 16 at a time
+    height = len(channels) + 1
+    buf = empty_pack(mask.device, n // ROW, size, height)
+    total = torch.empty(1, dtype=torch.int32, device=mask.device)
+    launch(mask, channels, buf, total)
+    return buf[:height], total[0]
 
 
 def launch(mask: torch.Tensor, channels: Sequence[torch.Tensor],
-           packed: torch.Tensor, row_cnt: torch.Tensor,
-           status: torch.Tensor, total: torch.Tensor) -> None:
+           buf: torch.Tensor, total: torch.Tensor) -> None:
     """Launch the kernel on the current stream, on buffers the caller
     holds (compact_channels checks the inputs and allocates them): fills
-    `packed` [len(channels) + 1, cap] and `total` [1]; `row_cnt` is int32
-    scratch of n / 128, `status` int64 scratch of status_words(n / 128)
-    (the kernel zeroes it).  Raises if the launch is refused; counts it in
+    the pack `buf[:len(channels) + 1]` of an ops/pack_rows_cuda.py::
+    empty_pack(device, n / 128, size, len(channels) + 1) buffer (the rows
+    behind it are the prefix's scratch, which the kernel zeroes) and
+    `total` [1].  Raises if the launch is refused; counts it in
     compact_channels.launches."""
     dev = mask.device
+    height, cap = len(channels) + 1, buf.shape[1]
     ptrs = (_P * len(channels))(*[c.data_ptr() for c in channels])
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.compact_channels_f32(
             mask.data_ptr(), int(mask.dtype == torch.float32), ptrs,
-            len(channels), mask.numel(), row_cnt.data_ptr(),
-            status.data_ptr(), packed.data_ptr(), total.data_ptr(),
-            packed.shape[1], torch.cuda.current_stream(dev).cuda_stream)
+            len(channels), mask.numel(), buf.data_ptr(),
+            (buf.shape[0] - height) * cap // 2, total.data_ptr(), cap,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"compact_channels_f32 launch failed: cudaError {err}")

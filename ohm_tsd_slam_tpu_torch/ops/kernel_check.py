@@ -123,10 +123,11 @@ class KernelCheck:
                    and e_nrm <= NORMAL_TOL,
                    hits=int((out_p[:, 0] > 0).sum()), **found)
 
-    def _window_replay(self, grid, k, ray, idx_min, idx_max, active, tr):
+    def _window_replay(self, grid, k, ray, idx_min, idx_max, active, tr,
+                       row0=0):
         args = (grid, k, ray, idx_min, idx_max, active, tr)
-        out = self._k.window_replay(*args)
-        out_p = window_replay_plain(*args)
+        out = self._k.window_replay(*args, row0=row0)
+        out_p = window_replay_plain(*args, row0=row0)
         ev = out_p[:, 1] > 0.0                  # rows with an event
         self._rows("window_replay", out, out_p, ev, events=int(ev.sum()))
         return out

@@ -77,13 +77,16 @@ def pack_rows(grid: TsdGrid, mask: torch.Tensor, row_cnt: torch.Tensor,
     return buf[:5], total[0]
 
 
-def empty_pack(device, rows: int, size: int) -> torch.Tensor:
+def empty_pack(device, rows: int, size: int, height: int = 5
+               ) -> torch.Tensor:
     """The kernel's output buffer for `rows` row counts and a capacity of
-    `size` segments: the pack's five rows of size + 128 and, behind them,
-    whole rows that hold the prefix's status words."""
+    `size` segments: the pack's `height` rows of size + 128 (five here;
+    the channels and the validity row in csrc/compact_channels.cu) and,
+    behind them, whole rows that hold the prefix's status words."""
     cap = size + ROW
     extra = -(-2 * status_words(rows) // cap)
-    return torch.empty((5 + extra, cap), dtype=torch.float32, device=device)
+    return torch.empty((height + extra, cap), dtype=torch.float32,
+                       device=device)
 
 
 def launch(grid: TsdGrid, mask: torch.Tensor, row_cnt: torch.Tensor,

@@ -49,8 +49,8 @@ ROUNDS_THREADS = 1024        # csrc/window_replay.cu::kRoundsThreads
 def _lib() -> ctypes.CDLL:
     lib = _build.load("window_replay")
     if lib.window_replay_f32.argtypes is None:
-        lib.window_replay_f32.argtypes = [_P, _I, _I, _F, _P, _P, _P, _P,
-                                          _P, _P, _P, _I, _I, _P]
+        lib.window_replay_f32.argtypes = [_P, _I, _I, _I, _F, _P, _P, _P,
+                                          _P, _P, _P, _P, _I, _I, _P]
         lib.window_replay_f32.restype = _I
         lib.window_rounds_f32.argtypes = [_P, _I, _I, _F, _P, _P, _P, _P,
                                           _P, _P, _I, _I, _I, _I, _I, _I,
@@ -92,13 +92,15 @@ def _poses(name: str, tr: torch.Tensor, N: int) -> int:
 
 def window_replay(grid: TsdGrid, k: torch.Tensor, ray: torch.Tensor,
                   idx_min: torch.Tensor, idx_max: torch.Tensor,
-                  active: torch.Tensor, tr: torch.Tensor) -> torch.Tensor:
+                  active: torch.Tensor, tr: torch.Tensor,
+                  row0: int = 0) -> torch.Tensor:
     """[N, 8] per beam: hit, any_ev, pos_x, pos_y, interp, nx, ny, n_ok
     for the window around the candidate step k (see window_replay_plain);
-    zeros for an inactive beam."""
+    zeros for an inactive beam.  `grid` may be a row block whose row 0 is
+    world row `row0` (parallel/shard_raycast.py)."""
     if not grid.tsd.is_cuda:
         return window_replay_plain(grid, k, ray, idx_min, idx_max, active,
-                                   tr)
+                                   tr, row0=row0)
     tsd = _field("window_replay", grid)
     dev = tsd.device
     H, W = tsd.shape
@@ -117,7 +119,7 @@ def window_replay(grid: TsdGrid, k: torch.Tensor, ray: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.window_replay_f32(
-            tsd.data_ptr(), H, W, grid.cell_size, f["k"].data_ptr(),
+            tsd.data_ptr(), H, W, row0, grid.cell_size, f["k"].data_ptr(),
             f["ray"].data_ptr(), f["idx_min"].data_ptr(),
             f["idx_max"].data_ptr(), active.data_ptr(), f["tr"].data_ptr(),
             out.data_ptr(), N, N // P,

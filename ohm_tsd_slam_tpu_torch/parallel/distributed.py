@@ -19,11 +19,21 @@ import torch
 import torch.distributed as dist
 
 
-def local_device() -> torch.device:
-    """This process's device: cuda:(LOCAL_RANK % device_count) where
-    there is a card (ranks beyond the cards share them), else the CPU."""
-    if not torch.cuda.is_available():
+def local_device(device_type: Optional[str] = None) -> torch.device:
+    """This process's device.  `device_type` None or "cuda" is the card,
+    cuda:(LOCAL_RANK % device_count) (ranks beyond the cards share them),
+    and raises where there is none; the CPU only when the caller names
+    "cpu"."""
+    if device_type == "cpu":
         return torch.device("cpu")
+    if device_type not in (None, "cuda"):
+        raise ValueError(f"local_device: device_type must be \"cuda\" or "
+                         f"\"cpu\", got {device_type!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the mesh runs on the CUDA device by default and "
+            "torch.cuda.is_available() is False; pass device_type=\"cpu\" "
+            "to run on the CPU")
     rank = int(os.environ.get("LOCAL_RANK", "0") or 0)
     return torch.device("cuda", rank % torch.cuda.device_count())
 
@@ -31,7 +41,8 @@ def local_device() -> torch.device:
 def initialize(init_method: Optional[str] = None,
                world_size: Optional[int] = None,
                rank: Optional[int] = None,
-               backend: Optional[str] = None) -> bool:
+               backend: Optional[str] = None,
+               device_type: Optional[str] = None) -> bool:
     """Join the torch.distributed world (init_process_group).
 
     Arguments default to torchrun's environment: WORLD_SIZE, RANK, and
@@ -42,10 +53,11 @@ def initialize(init_method: Optional[str] = None,
     package's, a world of one process counts as asked for: torchrun sets
     WORLD_SIZE=1 for one process, which then forms a mesh of one rank.
 
-    The backend is "nccl" where the rank's device (local_device) is a
-    card and "gloo" on the CPU, unless named: several ranks sharing one
-    card need "gloo" (NCCL refuses two ranks on one device).  On a card
-    the rank's device is made current before the group forms.
+    The rank's device is local_device(device_type): the card unless
+    "cpu" is named (without a card that raises).  The backend is "nccl"
+    on a card and "gloo" on the CPU, unless named: several ranks sharing
+    one card need "gloo" (NCCL refuses two ranks on one device).  On a
+    card the rank's device is made current before the group forms.
     """
     env = os.environ
     if world_size is None:
@@ -54,7 +66,7 @@ def initialize(init_method: Optional[str] = None,
         return False
     if rank is None:
         rank = int(env.get("RANK", "0") or 0)
-    device = local_device()
+    device = local_device(device_type)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(

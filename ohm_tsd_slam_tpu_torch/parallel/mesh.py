@@ -55,11 +55,17 @@ def _factor2(n: int) -> Tuple[int, int]:
 def make_mesh(device_type: str = None,
               axes: Tuple[str, str] = ("sp", "dp")) -> DeviceMesh:
     """The 2D mesh over every rank of the initialised world, the
-    most-square (sp, dp) = _factor2(world size).  `device_type` defaults
-    to "cuda" where there is a card, else "cpu".  Another shape: build a
-    DeviceMesh directly, as the JAX package's tests build a Mesh."""
+    most-square (sp, dp) = _factor2(world size).  `device_type` None is
+    "cuda", which raises where there is no card: the mesh runs on the CPU
+    only for a caller who names "cpu".  Another shape: build a DeviceMesh
+    directly, as the JAX package's tests build a Mesh."""
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        device_type = "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_mesh runs on the CUDA device by default and "
+            "torch.cuda.is_available() is False; pass device_type=\"cpu\" "
+            "to run on the CPU")
     return init_device_mesh(device_type, _factor2(dist.get_world_size()),
                             mesh_dim_names=axes)
 

@@ -16,6 +16,7 @@ held against their definitions."""
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from ohm_tsd_slam_tpu.parallel import mesh as jmesh
@@ -51,7 +52,29 @@ def test_initialize_without_a_world_does_nothing(monkeypatch):
     assert distributed.initialize() is False
     assert distributed.initialize(world_size=4) is False
     assert not dist.is_initialized()
-    assert distributed.local_device().type == "cpu"
+    # without a card the rank's device is the CPU only when asked for
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device_type="cpu"'):
+        distributed.local_device()
+    assert distributed.local_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_entry_points_need_the_cpu_named(monkeypatch):
+    """make_mesh() and initialize() go to the card unless "cpu" is named,
+    and raise without one (before any group forms)."""
+    import torch.distributed as dist
+
+    from ohm_tsd_slam_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device_type="cpu"'):
+        make_mesh()
+    with pytest.raises(RuntimeError, match='device_type="cpu"'):
+        distributed.initialize(init_method="tcp://localhost:1",
+                               world_size=1, rank=0)
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="device_type"):
+        distributed.local_device("tpu")
 
 
 @pytest.mark.parametrize("lead", [0, 1])

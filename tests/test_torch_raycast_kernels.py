@@ -248,6 +248,107 @@ def test_compact_channels_kernel_matches_twin(cuda_device, case):
         compact_channels(m[:100], tuple(c[:100] for c in cs), size)
 
 
+def _halo_block(tsd, y0, h, halo):
+    """Rows [y0 - halo, y0 + h + halo) of the field, NaN past the grid, as
+    parallel/shard_raycast.py::_halo_exchange builds a rank's block."""
+    H, W = tsd.shape
+    pad = torch.full((halo, W), math.nan, dtype=tsd.dtype, device=tsd.device)
+    below = tsd[y0 - halo:y0] if y0 > 0 else pad
+    above = tsd[y0 + h:y0 + h + halo] if y0 + h < H else pad
+    return torch.cat([below, tsd[y0:y0 + h], above])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_window_replay_on_a_row_block_matches_twin(cuda_device, rank):
+    """Kernel D on a rank's halo'd block of the room (sp = 4, row0 = y0 -
+    HALO, the owned beams active) against its twin at max_abs_err 0; the
+    whole grid as the block of one rank (NaN rows past both edges, row0 =
+    -HALO) replays as the whole grid with row0 = 0, and row0 = 0 as the
+    call without it, in every bit."""
+    from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import window_replay
+    from ohm_tsd_slam_tpu_torch.parallel.shard_raycast import (
+        HALO,
+        _field_grid,
+    )
+
+    grid = _room(cuda_device)
+    s = grid.cell_size
+    geom = polar2d.SensorPolar2D(size=1081, angular_res=math.radians(0.25),
+                                 phi_min=math.radians(-135.0), max_range=8.0,
+                                 min_range=0.01)
+    pose = se2.make(*POSES[1], device=cuda_device)
+    ray, tr, idx_min, idx_max, feasible = rf.beam_geometry(grid, geom, pose)
+    seg = rf.extract_segments(grid)
+    lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
+    t_1 = rf.segment_min_plain(seg.pack, seg.count, ray, lo,
+                               torch.ceil(idx_max) + 1.0, lo,
+                               tr - seg.origin)[:, 0]
+    has = torch.isfinite(t_1) & feasible
+    k = torch.where(has, t_1, 0.0)
+    H = grid.tsd.shape[0]
+    h = H // 4
+    y0 = rank * h
+    row_c = (tr[1] + k * ray[:, 1]) / s - 0.5
+    owner = has & (row_c >= y0) & (row_c < y0 + h)
+    check = KernelCheck()
+    block = _field_grid(_halo_block(grid.tsd, y0, h, HALO), s)
+    out = check.kernels.window_replay(block, k, ray, idx_min, idx_max, owner,
+                                      tr, row0=y0 - HALO)
+    torch.cuda.synchronize()
+    assert check.stats["window_replay"] == {"calls": 1, "max_abs_err": 0.0}
+    assert int((out[:, 0] > 0).sum()) > 50
+    assert not out[~owner].any()
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    whole = window_replay(grid, k, ray, idx_min, idx_max, has, tr)
+    assert torch.equal(bits(whole), bits(window_replay(
+        grid, k, ray, idx_min, idx_max, has, tr, row0=0)))
+    world1 = _field_grid(_halo_block(grid.tsd, 0, H, HALO), s)
+    assert torch.equal(bits(whole), bits(window_replay(
+        world1, k, ray, idx_min, idx_max, has, tr, row0=-HALO)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", ["bool", "float", "bool_offset"])
+@pytest.mark.parametrize("n", [16384, 32768, 32896, 4194304])
+def test_compact_channels_one_and_many_tiles(cuda_device, n, mask_kind):
+    """Kernel E's one-tile path (up to 32,768 lanes: no ticket, no status
+    word) and its look-back over tiles (32,896 lanes: a second tile of one
+    row; 4 Mi lanes: 128 tiles) against its twin in every bit, with a
+    capacity below the count (drops counted), NaN and Inf channels at set
+    and unset lanes, a bool mask, a float mask and a bool mask off 16
+    bytes (the wrapper copies it: the kernel reads 16 bytes at a time)."""
+    from ohm_tsd_slam_tpu_torch.grid.compact import pack_channels_rows
+    from ohm_tsd_slam_tpu_torch.ops.compact_channels_cuda import (
+        compact_channels,
+    )
+
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < 0.05
+    size = max(128, (int(mask.sum()) * 3 // 4) // 128 * 128)
+    assert size < mask.sum()
+    chans = [rng.normal(size=n).astype(np.float32) for _ in range(4)]
+    for c, v in zip(chans, (np.nan, np.inf, -np.inf, np.nan)):
+        c[rng.choice(n, n // 50, replace=False)] = v
+    m = torch.from_numpy(mask).to(cuda_device)
+    if mask_kind == "float":
+        m = m.float()
+    if mask_kind == "bool_offset":
+        m = torch.cat([m[:1], m])[1:]
+        assert m.data_ptr() % 16 != 0
+    cs = tuple(torch.from_numpy(c).to(cuda_device) for c in chans)
+    before = compact_channels.launches
+    got, cnt = compact_channels(m, cs, size)
+    want, wcnt = pack_channels_rows(m, cs, size)
+    torch.cuda.synchronize()
+    assert compact_channels.launches == before + 1
+    assert int(cnt) == int(wcnt) == int(mask.sum())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_kernels_match_twins_in_the_rounds(cuda_device):
     """The sliver field: beams that step over it resolve in the later

@@ -183,13 +183,13 @@ def test_render_matches_one_card(case, shape):
 
 @pytest.mark.parametrize("shape", SHAPES, ids=_ids)
 def test_render_collectives(case, shape):
-    """One halo all_reduce, a MIN and a SUM a round, one SUM of the
-    normals: 2 + 2 ROUNDS, whatever the mesh (the JAX package's compiled
-    render has 2 collective-permutes and 9 all-reduces at sp >= 2,
-    MULTICHIP_SCALING.json)."""
+    """One halo all_reduce, a MIN and a SUM a round (the SUM carries the
+    replay's normals and the drops): 1 + 2 ROUNDS, whatever the mesh (the
+    JAX package's compiled render has 2 collective-permutes and 9
+    all-reduces at sp >= 2, MULTICHIP_SCALING.json)."""
     for res in case["ranks"][shape]:
         for i in range(len(QUERY)):
-            assert res[f"ray{i}_collectives"][0] == 2 + 2 * ROUNDS
+            assert res[f"ray{i}_collectives"][0] == 1 + 2 * ROUNDS
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=_ids)

@@ -25,6 +25,7 @@ import pytest
 
 from ohm_tsd_slam_tpu.parallel import make_sharded_step as j_make_step
 from ohm_tsd_slam_tpu.parallel import mesh as jmesh
+from ohm_tsd_slam_tpu_torch.grid.raycast_fast import ROUNDS
 from ohm_tsd_slam_tpu_torch.parallel import multi_robot_slam_step
 from ohm_tsd_slam_tpu_torch.utils.testing import limit_cpu_threads
 from jax.sharding import Mesh
@@ -100,11 +101,12 @@ def run_case(modes, tmp):
 
 
 def expected_collectives(mode: str, robots_a_rank: int) -> int:
-    """all_reduce calls a step takes on a rank: a render (2 + 2 ROUNDS)
+    """all_reduce calls a step takes on a rank: a render (1 + 2 ROUNDS)
     and its matcher's for each of its robots, the pose gradient's 3 each,
     and one gather of every robot's results over dp."""
-    per_robot = {"icp": 10, "gn": 1 + 30, "tsd": 10 + 3,
-                 "amcl": 10 + 2 + AMCL["iterations"] + 1}[mode]
+    render = 1 + 2 * ROUNDS
+    per_robot = {"icp": render, "gn": 1 + 30, "tsd": render + 3,
+                 "amcl": render + 2 + AMCL["iterations"] + 1}[mode]
     return robots_a_rank * (per_robot + 3) + 1
 
 

@@ -167,7 +167,7 @@ def job_mesh(mesh, inp, p):
     out["psum"] = np.array([float(y), float(g)])
     scan = [inp["scan"] * (1.0 + torch.distributed.get_rank()),
             inp["scan_mask"] ^ bool(torch.distributed.get_rank() % 2)]
-    got = broadcast_scan(mesh, scan, local_device())
+    got = broadcast_scan(mesh, scan, local_device("cpu"))
     out["bcast"] = got[0].numpy()
     out["bcast_mask"] = got[1].numpy()
     out["bcast_dtypes"] = np.array([str(t.dtype) for t in got])
@@ -325,7 +325,8 @@ def main(argv) -> int:
 
     job, inp_path, out_dir, mesh_arg = argv[1:5]
     limit_cpu_threads()
-    assert initialize(), "initialize() did not join the world"
+    assert initialize(device_type="cpu"), \
+        "initialize() did not join the world"
     try:
         if mesh_arg == "auto":
             mesh = make_mesh("cpu")
