@@ -99,6 +99,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       step's time (against the one-card step's in this run).  Kernels A and B also run on row
       blocks of 257 and 513 rows of the ICP path's grid against their
       twins;
+   g. the functions ported last (inventory_path): push_tree along the ICP
+      path's poses into a new grid (the push kernel with branch_gate's
+      tile gate, one launch a push, each launch checked by PushCheck
+      against tile_cull & gate), every grid equal in every bit to the
+      ungated kernel's and within compare_push of the plain push with the
+      gate; the short-range case of tests/test_inventory.py (map_size 9,
+      0.5 m), which must prune tiles; the gated and the ungated launch
+      timed on the ICP path's grid; projective_pairs_3d and
+      occlusion_filter on a 640 x 480 depth image, trimmed_filter on the
+      ICP path's last scan's pairs and surface_points on its grid, each
+      equal to the CPU port's in every element;
 5. times: first a check that extract_segments, localize_step (in every
    mode) and the push wrapper make no host sync, then medians and
    quartiles of 25 runs after a warm-up, each printed beside the card's
@@ -123,6 +134,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -2728,8 +2740,9 @@ def cli_path(label: str) -> dict:
                         r"max (\S+) m", printed[1])
         median = re.search(r"process_scan on (\S+): median (\S+) ms",
                            printed[1])
-        g = load_npz(os.path.join(out_dir, "grid.npz"))
-        t = load_text(os.path.join(out_dir, "grid_store.txt"))
+        g = load_npz(os.path.join(out_dir, "grid.npz"), device="cpu")
+        t = load_text(os.path.join(out_dir, "grid_store.txt"),
+                      device="cpu")
         rows = open(os.path.join(out_dir, "trajectory.csv")).read()
     limit = 2.5 * 0.025
     out = {"scans": CLI_STEPS, "mean_err": float(err.group(1)),
@@ -2751,6 +2764,347 @@ def cli_path(label: str) -> dict:
     assert torch.equal(g.tile_initw[empty].clamp(max=t.max_weight),
                        t.tile_initw[empty])
     assert int(g.tile_init.sum()) > 100
+    return out
+
+
+PROJ_W, PROJ_H = 640, 480    # the projective phase's depth image
+PROJ_F = 525.0               # its pinhole's focal length, pixels
+TRIM_PERCENT = 80.0
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal in every bit (NaN payloads and signed zeros included)."""
+    a, b = a.contiguous().cpu(), b.contiguous().cpu()
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        a.numpy().tobytes() == b.numpy().tobytes()
+
+
+def depth_cloud(seed: int):
+    """A synthetic PROJ_W x PROJ_H depth image (a slanted wall with a
+    bump, noise and pixels without a return) back-projected through the
+    pinhole [[f, 0, w/2, 0], [0, f, h/2, 0], [0, 0, 1, 0]]: [h·w, 3]
+    float32 points (z = 0 where there is no return) and that P."""
+    width, height, f = PROJ_W, PROJ_H, PROJ_F
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:height, 0:width].astype(np.float64)
+    z = 2.0 + 0.002 * u + 0.3 * np.exp(-((u - width / 3) ** 2
+                                         + (v - height / 2) ** 2) / 3000.0)
+    z = z + rng.normal(0.0, 0.002, z.shape)
+    z[rng.random(z.shape) < 0.05] = 0.0
+    pts = np.stack([(u - width / 2) * z / f, (v - height / 2) * z / f, z],
+                   -1).reshape(-1, 3)
+    P = np.array([[f, 0.0, width / 2, 0.0], [0.0, f, height / 2, 0.0],
+                  [0.0, 0.0, 1.0, 0.0]])
+    return pts.astype(np.float32), P.astype(np.float32)
+
+
+def inventory_path(node, label: str, push_check) -> dict:
+    """The functions ported last, on the card at full size.
+
+    push_tree: the ICP path's pose sequence (both robots, the double
+    laser's settings, 1024^2 cells, 1081 beams) through push_tree into a
+    new grid, its launches counted, every gated launch checked by
+    `push_check` (the kernel's cull against tile_cull & gate); then each
+    pushed grid against push_cuda without a gate from the grid before it
+    (every bit) and against the plain push with the gate (compare_push).
+    The short-range case of tests/test_inventory.py (map_size 9, 0.5 m,
+    the pose at the centre) must prune tiles and still equal the ungated
+    push.  A seeded random gate (60% open) closes tiles that the scan
+    touches, on a new grid, on the ICP path's grid and on a row block of
+    it (ty0): closed tiles must be copied through and open ones equal the
+    ungated launch in every bit, the tsd within PUSH_TOL of the gated
+    plain push.  The gated and the ungated launch are timed on the ICP
+    path's grid and in the pruning case.  projective_pairs_3d and occlusion_filter on a 640 x 480 depth
+    image, trimmed_filter on the ICP path's last scan's pairs and
+    surface_points on its grid: each equal to the CPU port's on the same
+    inputs in every element."""
+    from ohm_tsd_slam_tpu_torch.config import GridConfig, from_flat_params
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import dispatch, push_tree
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.axis_aligned import surface_points
+    from ohm_tsd_slam_tpu_torch.grid.push import branch_gate, push
+    from ohm_tsd_slam_tpu_torch.grid.state import (
+        create,
+        from_arrays,
+        to_arrays,
+    )
+    from ohm_tsd_slam_tpu_torch.ops.push_cuda import (
+        empty_like,
+        launch,
+        push_cuda,
+    )
+    from ohm_tsd_slam_tpu_torch.registration.filters import (
+        occlusion_filter,
+        trimmed_filter,
+    )
+    from ohm_tsd_slam_tpu_torch.registration.icp import icp
+    from ohm_tsd_slam_tpu_torch.registration.nn import (
+        assign_pairs_fused,
+        projective_pairs_3d,
+    )
+    from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
+        SensorPolar2D,
+        data_to_cartesian,
+        standard_mask,
+    )
+
+    dev = node.grid.tsd.device
+    fields = ("tsd", "weight", "tile_init", "tile_initw")
+    out = {}
+
+    def tree_run(grid, scans):
+        """push_tree over `scans` from `grid` with every gated launch
+        checked; the grids and the launch counts of that run alone."""
+        saved = dispatch.best_push
+        dispatch.best_push = lambda g: push_check
+        reset_counts()
+        grids = []
+        try:
+            for geom, pose, data, mask in scans:
+                grid = push_tree(grid, geom, pose, data, mask)
+                grids.append(grid)
+            torch.cuda.synchronize()
+        finally:
+            dispatch.best_push = saved
+        return grids, read_counts()
+
+    # ---- push_tree along the ICP path's poses, full size ----
+    cfg = from_flat_params(DOUBLE_LASER)
+    half = cfg.grid.size_meters * 0.5
+    gts = [trajectory((half + rc.local_offset_x, half + rc.local_offset_y,
+                       rc.local_offset_yaw), SCANS_PER_ROBOT)
+           for rc in cfg.robots]
+    scans = []
+    for k in range(SCANS_PER_ROBOT):
+        for r, rc in enumerate(cfg.robots):
+            geom = geom_1081(rc.sensor.max_range)
+            data, mask = standard_mask(geom, torch.as_tensor(
+                scan_ranges(gts[r][k], geom.max_range), dtype=torch.float32,
+                device=dev))
+            scans.append((geom, se2.make(*gts[r][k], device=dev), data,
+                          mask))
+    grid0 = create(cfg.grid, dtype=torch.float32, device=dev)
+    st0 = dict(push_check.stats)
+    grids, counts = tree_run(grid0, scans)
+    pruned = push_check.stats["pruned"] - st0["pruned"]
+    gated = push_check.stats["gated_calls"] - st0["gated_calls"]
+    assert counts["push"] == gated == len(scans), (counts, gated)
+    assert not any(v for k, v in counts.items() if k != "push"), counts
+    worst = {"max_abs_err": 0.0, "nan_mismatch_rate": 0.0,
+             "rate_over_1e-3": 0.0}
+    prev = grid0
+    for (geom, pose, data, mask), got in zip(scans, grids):
+        flat = push_cuda(prev, geom, pose, data, mask)
+        for f in fields:
+            assert bits_equal(getattr(got, f), getattr(flat, f)), f
+        twin = push(prev, geom, pose, data, mask,
+                    tile_gate=branch_gate(prev, geom, pose))
+        stats = compare_push(twin, got)
+        for key in worst:
+            worst[key] = max(worst[key], stats[key])
+        prev = got
+    assert worst["max_abs_err"] <= PUSH_TOL, worst
+    out["tree_path"] = {"pushes": len(scans), "launches": counts["push"],
+                        "pruned_tiles": pruned, **worst,
+                        "finite_cells": int(torch.isfinite(
+                            grids[-1].tsd).sum())}
+    print(f"inventory push_tree, ICP path's {len(scans)} poses: "
+          f"{json.dumps(out['tree_path'])}; every grid equal in every bit "
+          f"to push_cuda's without a gate [{label}]")
+
+    # ---- the pruning case: a 0.5 m sensor at the centre of map_size 9 ----
+    short = SensorPolar2D(size=BEAMS, angular_res=RES, phi_min=PHI_MIN,
+                          max_range=0.5, min_range=0.01)
+    g9 = create(GridConfig(map_size=9, cellsize=0.05, truncation_radius=3.0),
+                dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(11)
+    ranges = rng.uniform(0.2, 0.45, BEAMS)
+    ranges[rng.random(BEAMS) < 0.1] = np.inf
+    data9, mask9 = standard_mask(short, torch.as_tensor(
+        ranges, dtype=torch.float32, device=dev))
+    pose9 = se2.make(12.8, 12.8, 0.0, device=dev)
+    (tree9,), counts9 = tree_run(g9, [(short, pose9, data9, mask9)])
+    gate9 = branch_gate(g9, short, pose9)
+    flat9 = push_cuda(g9, short, pose9, data9, mask9)
+    for f in fields:
+        assert bits_equal(getattr(tree9, f), getattr(flat9, f)), f
+    out["pruning_case"] = {"launches": counts9["push"],
+                           "pruned_tiles": int((~gate9).sum()),
+                           "tiles": gate9.numel(),
+                           "touched": int(tree9.tile_init.sum())}
+    assert counts9["push"] == 1 and out["pruning_case"]["pruned_tiles"] >= 1
+    assert not bool(gate9[0, 0]) and out["pruning_case"]["touched"] > 0
+    print(f"inventory push_tree pruning case: "
+          f"{json.dumps(out['pruning_case'])}, equal to the ungated push "
+          f"in every bit [{label}]")
+
+    # ---- a seeded random gate (60% open) into the kernel, full size ----
+    # branch_gate closes no tile that tile_cull touches, so on the paths
+    # above a kernel that ignored its gate would give the same grids.
+    # This gate closes touched tiles: each closed tile must be copied
+    # through, each open one fused as without a gate.
+    loc = node.localizers[0]
+    grid, geom, lpose = node.grid, loc.geom, loc.pose.contiguous()
+    xyt = (float(lpose[0, 2]), float(lpose[1, 2]),
+           math.atan2(float(lpose[1, 0]), float(lpose[0, 0])))
+    data, mask = node._preprocess(loc, scan_ranges(xyt, geom.max_range))
+
+    def random_gate(g, geom_, pose_, data_, mask_, seed, ty0=0):
+        td = g.tile_dim
+        gate_ = torch.as_tensor(np.random.default_rng(seed).random(
+            (g.tiles_y, g.tiles_x)) < 0.6, device=dev)
+        got = push_check(g, geom_, pose_, data_, mask_, tile_gate=gate_,
+                         ty0=ty0)
+        flat = push_cuda(g, geom_, pose_, data_, mask_, ty0=ty0)
+        stats = compare_push(push(g, geom_, pose_, data_, mask_,
+                                  tile_gate=gate_, ty0=ty0), got)
+        assert stats["max_abs_err"] <= PUSH_TOL, stats
+        cells = gate_.repeat_interleave(td, 0).repeat_interleave(td, 1)
+        for f in ("tsd", "weight"):
+            a, b, c = getattr(got, f), getattr(flat, f), getattr(g, f)
+            assert bits_equal(a[cells], b[cells]), f
+            assert bits_equal(a[~cells], c[~cells]), f
+        moved = (flat.tsd.view(torch.int32) != g.tsd.view(torch.int32)
+                 ).reshape(g.tiles_y, td, g.tiles_x, td).any(3).any(1)
+        row = {"ty0": ty0, "tiles": gate_.numel(),
+               "closed": int((~gate_).sum()),
+               "closed_and_fused_without_the_gate": int((moved & ~gate_
+                                                         ).sum()),
+               "tile_init_differs": not torch.equal(got.tile_init,
+                                                    flat.tile_init),
+               "tsd_differs": not bits_equal(got.tsd, flat.tsd),
+               "max_abs_err": stats["max_abs_err"],
+               "rate_over_1e-3": stats["rate_over_1e-3"]}
+        assert row["closed_and_fused_without_the_gate"] > 0, row
+        assert row["tsd_differs"], row
+        return row, gate_
+
+    fresh, _ = random_gate(grid0, *scans[0], seed=31)
+    assert fresh["tile_init_differs"], fresh
+    icp_grid, rgate = random_gate(grid, geom, lpose, data, mask, seed=32)
+    # a row block (the second quarter of the tile rows) with ty0: the
+    # gate is indexed by the block's own tile rows
+    td, q = grid.tile_dim, grid.tiles_y // 4
+    block = dataclasses.replace(
+        grid, tsd=grid.tsd[q * td:2 * q * td].clone(),
+        weight=grid.weight[q * td:2 * q * td].clone(),
+        tile_init=grid.tile_init[q:2 * q].clone(),
+        tile_initw=grid.tile_initw[q:2 * q].clone())
+    rows, _ = random_gate(block, geom, lpose, data, mask, seed=33, ty0=q)
+    out["random_gate"] = {"fresh_grid": fresh, "icp_grid": icp_grid,
+                          "row_block": rows}
+    print(f"inventory push kernel with a seeded random gate: "
+          f"{json.dumps(out['random_gate'])}; closed tiles copied through "
+          f"and open ones equal to the ungated launch in every bit, tsd "
+          f"within {PUSH_TOL} of the gated plain push [{label}]")
+
+    # ---- the gated and the ungated launch, on the ICP path's grid and
+    # on the pruning case's ----
+    gate = branch_gate(grid, geom, lpose)
+    gate_u8 = gate.to(torch.uint8).contiguous()
+    rgate_u8 = rgate.to(torch.uint8).contiguous()
+    gate9_u8 = gate9.to(torch.uint8).contiguous()
+    held, held9 = empty_like(grid), empty_like(g9)
+    t = {
+        "push kernel device time, gated (tsd_push_f32 with branch_gate's "
+        "gate, replayed from a CUDA graph)": time_device(
+            lambda: launch(grid, geom, lpose, data, mask, held,
+                           gate=gate_u8)),
+        "push kernel device time, ungated (the same call)": time_device(
+            lambda: launch(grid, geom, lpose, data, mask, held)),
+        "push kernel device time, random gate 60% open (the same call)":
+            time_device(lambda: launch(grid, geom, lpose, data, mask, held,
+                                       gate=rgate_u8)),
+        "push kernel device time, pruning case gated (map_size 9, 0.5 m)":
+            time_device(lambda: launch(g9, short, pose9, data9, mask9, held9,
+                                       gate=gate9_u8)),
+        "push kernel device time, pruning case ungated (the same call)":
+            time_device(lambda: launch(g9, short, pose9, data9, mask9,
+                                       held9)),
+        "push_tree wrapper (branch_gate in torch + push_cuda)": time_cuda(
+            lambda: push_tree(grid, geom, lpose, data, mask)),
+        "push_cuda wrapper, ungated (the same call)": time_cuda(
+            lambda: push_cuda(grid, geom, lpose, data, mask))}
+    out["times"] = report_times(t, label)
+    print(f"inventory timed push: {int((~gate).sum())} of {gate.numel()} "
+          f"tiles pruned by branch_gate on the ICP path's grid, "
+          f"{int((~gate9).sum())} of {gate9.numel()} in the pruning case "
+          f"[{label}]")
+
+    # ---- projective pairs and the occlusion filter, 640 x 480 ----
+    # the second cloud: the first turned 0.01 rad about z and about y,
+    # then moved by (0.02, -0.01, 0.03) m
+    cloud, P = depth_cloud(21)
+    c, s1 = math.cos(0.01), math.sin(0.01)
+    R = (np.array([[c, -s1, 0.0], [s1, c, 0.0], [0.0, 0.0, 1.0]])
+         @ np.array([[c, 0.0, s1], [0.0, 1.0, 0.0], [-s1, 0.0, c]]))
+    scene = (cloud.astype(np.float64) @ R.T
+             + np.array([0.02, -0.01, 0.03])).astype(np.float32)
+    scene_mask = scene[:, 2] > 0
+    behind = cloud * ((cloud[:, 2:] + 0.5) / np.maximum(cloud[:, 2:], 1e-9))
+    occl = np.concatenate([cloud, behind[::2]]).astype(np.float32)
+    occl_mask = occl[:, 2] > 0
+    res = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        T = {name: torch.as_tensor(a, device=d) for name, a in (
+            ("model", cloud), ("scene", scene), ("mask", scene_mask),
+            ("P", P), ("occl", occl), ("occl_mask", occl_mask))}
+        res[where] = (projective_pairs_3d(T["model"], T["scene"], T["mask"],
+                                          T["P"], PROJ_W, PROJ_H),
+                      occlusion_filter(T["occl"], T["occl_mask"], T["P"],
+                                       PROJ_W, PROJ_H))
+    (idx, d2, pair), kept = res["cuda"]
+    (idx_c, d2_c, pair_c), kept_c = res["cpu"]
+    assert bits_equal(idx, idx_c) and bits_equal(pair, pair_c)
+    assert bits_equal(d2, d2_c) and bits_equal(kept, kept_c)
+    out["projective"] = {"points": int(cloud.shape[0]),
+                         "pairs": int(pair.sum()),
+                         "occlusion_points": int(occl.shape[0]),
+                         "occluded": int((occl_mask & ~kept.cpu().numpy()
+                                          ).sum())}
+    assert out["projective"]["pairs"] > 0.5 * cloud.shape[0]
+    assert out["projective"]["occluded"] > 0.3 * behind[::2].shape[0]
+    print(f"inventory projective_pairs_3d and occlusion_filter, "
+          f"{PROJ_W} x {PROJ_H}: {json.dumps(out['projective'])}, indices, "
+          f"d2 and masks equal to the CPU port's in every bit [{label}]")
+
+    # ---- trimmed_filter on the ICP path's last scan's pairs ----
+    seg = node._segments_for(grid)
+    scene2, scene2_mask = data_to_cartesian(geom, data, mask)
+    model = rf.raycast_fast(grid, geom, lpose, segments=seg)
+    reg = icp(model.coords, model.mask, scene2, scene2_mask, loc.params.icp,
+              sensor_pose=lpose, model_normals=model.normals)
+    _, d2p, pmask, _ = assign_pairs_fused(
+        model.coords, model.mask, se2.transform_points(reg.T, scene2),
+        scene2_mask, model.normals)
+    trimmed = trimmed_filter(d2p, pmask, TRIM_PERCENT)
+    trimmed_c = trimmed_filter(d2p.cpu(), pmask.cpu(), TRIM_PERCENT)
+    assert bits_equal(trimmed, trimmed_c)
+    n = int(pmask.sum())
+    out["trimmed"] = {"pairs": n, "kept": int(trimmed.sum()),
+                      "percent": TRIM_PERCENT}
+    assert out["trimmed"]["kept"] == math.floor(
+        np.float32(n) * np.float32(TRIM_PERCENT) / np.float32(100.0)) > 0
+    print(f"inventory trimmed_filter on the ICP path's last scan: "
+          f"{json.dumps(out['trimmed'])}, equal to the CPU port's [{label}]")
+
+    # ---- surface_points on the ICP path's grid ----
+    pts, pmask2 = surface_points(grid)
+    pts_c, pmask2_c = surface_points(from_arrays(to_arrays(grid),
+                                                 device="cpu"))
+    assert bits_equal(pmask2, pmask2_c)
+    assert bits_equal(pts[pmask2], pts_c[pmask2_c])
+    assert torch.equal(torch.isnan(pts).cpu(), torch.isnan(pts_c))
+    H, W = grid.tsd.shape
+    out["surface_points"] = {"slots": int(pts.shape[0]),
+                             "crossings": int(pmask2.sum())}
+    assert out["surface_points"]["slots"] == H * (W - 1) + (H - 1) * W
+    assert out["surface_points"]["crossings"] > 1000
+    print(f"inventory surface_points on the ICP path's grid: "
+          f"{json.dumps(out['surface_points'])}, equal to the CPU port's in "
+          f"every bit [{label}]")
     return out
 
 
@@ -3073,6 +3427,9 @@ def main() -> int:
         print(f"kernel check A and B on a row block, {name}: "
               f"{json.dumps(stats)}")
     cli = cli_path(label)
+    # 4g. push_tree through the gated push kernel, the 3D filters, the
+    # trimmed filter and surface_points
+    inventory = inventory_path(node, label, push_check)
     print(f"kernel check caster, every call: {json.dumps(caster_stats)}")
     # every push of the kernel check and of the five paths: PushCheck
     # raises on the first tile that disagrees, so the counts below are 0
@@ -3147,7 +3504,23 @@ def main() -> int:
         device_ms=times["push kernel device time (tsd_push_f32 replayed "
                         "from a CUDA graph)"],
         launches_tsd_path=tsd_launches["push"],
-        launches_mesh_path=mesh_launches("push"))]
+        launches_mesh_path=mesh_launches("push"),
+        launches_tree_path=inventory["tree_path"]["launches"],
+        max_abs_err_gated=inventory["tree_path"]["max_abs_err"],
+        device_ms_gated=inventory["times"][
+            "push kernel device time, gated (tsd_push_f32 with "
+            "branch_gate's gate, replayed from a CUDA graph)"],
+        device_ms_ungated_same_call=inventory["times"][
+            "push kernel device time, ungated (the same call)"],
+        max_abs_err_random_gate=max(
+            r["max_abs_err"] for r in inventory["random_gate"].values()),
+        device_ms_pruning_case={
+            "gated": inventory["times"][
+                "push kernel device time, pruning case gated (map_size 9, "
+                "0.5 m)"],
+            "ungated": inventory["times"][
+                "push kernel device time, pruning case ungated (the same "
+                "call)"]})]
     for (name, fn, replaces), tag in zip(CASTER, "ABCDED"):
         key = next(k for k in times if k.startswith(f"{tag} {name} kernel"))
         extra = {"launches_tsd_path": tsd_launches[name],

@@ -1,3 +1,3 @@
-from ohm_tsd_slam_tpu_torch.core import se2
+from ohm_tsd_slam_tpu_torch.core import cloud, se2
 
-__all__ = ["se2"]
+__all__ = ["cloud", "se2"]

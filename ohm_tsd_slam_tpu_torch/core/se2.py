@@ -11,6 +11,10 @@ from __future__ import annotations
 import torch
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(3, dtype=dtype, device=device)
+
+
 def make(x, y, theta, dtype=torch.float32, device=None) -> torch.Tensor:
     """Build an SE(2) transform [[R(theta), t], [0, 1]]
     (src/ThreadLocalize.cpp:296-308).  A Python number becomes a tensor by
@@ -26,6 +30,10 @@ def make(x, y, theta, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.stack([torch.stack([c, -s, x]),
                         torch.stack([s, c, y]),
                         torch.stack([zero, zero, one])])
+
+
+def rotation(T: torch.Tensor) -> torch.Tensor:
+    return T[:2, :2]
 
 
 def translation(T: torch.Tensor) -> torch.Tensor:
@@ -69,3 +77,20 @@ def rotate_vectors(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     out_x = T[0, 0] * x + T[0, 1] * y
     out_y = T[1, 0] * x + T[1, 1] * y
     return torch.stack([out_x, out_y], dim=-1)
+
+
+def embed44(T3: torch.Tensor) -> torch.Tensor:
+    """Embed a 3x3 SE(2) transform into a 4x4 (the reference keeps ICP
+    state as 4x4; src/obvision/registration/icp/Icp.cpp:528-546)."""
+    T4 = torch.eye(4, dtype=T3.dtype, device=T3.device)
+    T4[:2, :2] = T3[:2, :2]
+    T4[:2, 3] = T3[:2, 2]
+    return T4
+
+
+def extract33(T4: torch.Tensor) -> torch.Tensor:
+    """The 3x3 SE(2) transform of embed44's 4x4."""
+    T3 = torch.eye(3, dtype=T4.dtype, device=T4.device)
+    T3[:2, :2] = T4[:2, :2]
+    T3[:2, 2] = T4[:2, 3]
+    return T3

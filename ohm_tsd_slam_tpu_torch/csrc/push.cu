@@ -39,6 +39,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -91,6 +92,7 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
                                 const float* __restrict__ data,
                                 const bool* __restrict__ mask,
                                 const float* __restrict__ pose,
+                                const uint8_t* __restrict__ gate,
                                 float* __restrict__ tsd_out,
                                 float* __restrict__ weight_out,
                                 bool* __restrict__ tile_init_out,
@@ -144,8 +146,11 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
   }
 
   // beam-span reductions (TsdGridComponent.cpp:96-114) over the span only;
-  // a tile that fails before them takes no decision from the scan
-  const bool candidate = in_window && any_visible;  // uniform over the block
+  // a tile that fails before them takes no decision from the scan.  A tile
+  // whose gate byte is 0 (grid/push.py::push_tree's branch gate) is culled
+  // here: neither touched nor emptied, copied through, its tile arrays kept
+  const bool open = gate == nullptr || gate[tile] != 0;
+  const bool candidate = open && in_window && any_visible;  // block-uniform
   bool visible = false, empty = true;
   if (candidate) {
     const bool close_by = distance < p.low_refl;
@@ -261,17 +266,21 @@ __global__ void tsd_push_kernel(const float* __restrict__ tsd_in,
 // One push on `stream`, out of place.  In: tsd, weight [H, W] float32
 // row-major, tile_init [TY, TX] bool, tile_initw [TY, TX] float32 (H and W
 // whole multiples of tile_dim), data [n_beams] ranges, mask [n_beams] bool,
-// pose the 3x3 row-major sensor pose; all on the device.  The grid may be
+// pose the 3x3 row-major sensor pose, gate null or a [TY, TX] byte mask
+// (tiles at 0 take no part: touch and empty_inc ANDed with it, as
+// grid/push.py::push's tile_gate); all on the device.  The grid may be
 // a row block of a larger one whose first tile row is ty0 (0 for a whole
-// grid): its cells are fused as the same cells of the larger grid.  Out:
+// grid): its cells are fused as the same cells of the larger grid, and the
+// gate is the block's own, indexed by the block's tile rows.  Out:
 // the four arrays of the new grid and, where cull_out is not null, the
-// cull's decisions [TY, TX, 3] (touch, empty_inc as 0/1, part_weight).
+// cull's decisions [TY, TX, 3] (touch, empty_inc as 0/1 after the gate,
+// part_weight).
 // The float parameters are the float32 values the plain version's scalars
 // round to.  Returns the cudaError_t of the launch.
 extern "C" int tsd_push_f32(
     const float* tsd_in, const float* weight_in, const bool* tile_init_in,
     const float* tile_initw_in, const float* data, const bool* mask,
-    const float* pose, float* tsd_out, float* weight_out,
+    const float* pose, const uint8_t* gate, float* tsd_out, float* weight_out,
     bool* tile_init_out, float* tile_initw_out, float* cull_out, int H,
     int W, int tile_dim, int n_beams, int ty0, float cell_size,
     float tile_size,
@@ -299,7 +308,7 @@ extern "C" int tsd_push_f32(
   const dim3 grid(p.tiles_x, H / tile_dim);
   const dim3 block(32, 8);
   tsd_push_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      tsd_in, weight_in, tile_init_in, tile_initw_in, data, mask, pose,
+      tsd_in, weight_in, tile_init_in, tile_initw_in, data, mask, pose, gate,
       tsd_out, weight_out, tile_init_out, tile_initw_out, cull_out, p);
   return static_cast<int>(cudaGetLastError());
 }

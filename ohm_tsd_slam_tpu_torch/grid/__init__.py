@@ -10,7 +10,7 @@ from ohm_tsd_slam_tpu_torch.grid.interpolate import (
     interpolate_normal,
 )
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
-from ohm_tsd_slam_tpu_torch.grid.push import push
+from ohm_tsd_slam_tpu_torch.grid.push import push, push_tree
 from ohm_tsd_slam_tpu_torch.grid.raycast import RaycastResult, raycast
 from ohm_tsd_slam_tpu_torch.grid.render import render_ranges
 # as in the JAX package, the raycast_fast function is not bound here: it
@@ -34,6 +34,7 @@ __all__ = [
     "interpolate_normal",
     "best_push",
     "push",
+    "push_tree",
     "render_ranges",
     "RaycastResult",
     "raycast",

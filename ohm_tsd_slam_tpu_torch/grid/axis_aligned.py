@@ -1,5 +1,6 @@
 """Axis-aligned surface extraction → occupancy grid (port of
-ohm_tsd_slam_tpu/grid/axis_aligned.py::occupancy_grid).
+ohm_tsd_slam_tpu/grid/axis_aligned.py::occupancy_grid and
+::surface_points).
 
 RayCastAxisAligned2D::calcCoords (RayCastAxisAligned2D.cpp:13-105) plus
 the occupancy assembly of ThreadGrid::eventLoop (ThreadGrid.cpp:72-133),
@@ -20,7 +21,7 @@ module docstring for the derivation):
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -55,6 +56,24 @@ def _crossings(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a > 0) & (b < 0)) | ((a < 0) & (b > 0))
 
 
+def _scans(grid: TsdGrid):
+    """The scanning tiles (initialized interior ones) and the cells each
+    scan covers: (ii [TY, TX], cell_ii, row0, col0, spill_down,
+    spill_right), the last two being the first row (col) of the tile
+    below (right of) a scanning tile, which its halo scan reaches."""
+    p = grid.tile_dim
+    dev = grid.tsd.device
+    H, W = grid.tsd.shape
+    ii = _interior_tile_mask(grid) & grid.tile_init
+    hh = torch.arange(H, device=dev)
+    ww = torch.arange(W, device=dev)
+    row0 = ((hh % p == 0) & (hh >= p))[:, None]
+    col0 = ((ww % p == 0) & (ww >= p))[None, :]
+    spill_down = row0 & expand_tiles(grid, _shift_tiles(ii, 1, 0))
+    spill_right = col0 & expand_tiles(grid, _shift_tiles(ii, 0, 1))
+    return ii, expand_tiles(grid, ii), row0, col0, spill_down, spill_right
+
+
 def occupancy_grid(grid: TsdGrid, use_inflation: bool = False,
                    inflation_factor: int = 2) -> OccupancyResult:
     """Extract the occupancy grid.
@@ -68,26 +87,17 @@ def occupancy_grid(grid: TsdGrid, use_inflation: bool = False,
     interpolated, stamped at round(x/cellSize) with u,v in (0, W)x(0, H)
     (ThreadGrid.cpp:96-118).
     """
-    p = grid.tile_dim
     tsd = grid.tsd
     H, W = tsd.shape
     dev = tsd.device
-    interior = _interior_tile_mask(grid)
-    ii = interior & grid.tile_init                  # scanning tiles
+    ii, cell_ii, row0, col0, spill_down, spill_right = _scans(grid)
 
     def cells(tiles):
         return expand_tiles(grid, tiles)
 
-    cell_ii = cells(ii)
     cell_init = cells(grid.tile_init)
-    cell_empty = cells(~grid.tile_init & (grid.tile_initw > 0.0) & interior)
-
-    hh = torch.arange(H, device=dev)
-    ww = torch.arange(W, device=dev)
-    row0 = ((hh % p == 0) & (hh >= p))[:, None]
-    col0 = ((ww % p == 0) & (ww >= p))[None, :]
-    spill_down = row0 & cells(_shift_tiles(ii, 1, 0))
-    spill_right = col0 & cells(_shift_tiles(ii, 0, 1))
+    cell_empty = cells(~grid.tile_init & (grid.tile_initw > 0.0)
+                       & _interior_tile_mask(grid))
     spill = spill_down | spill_right | (row0 & col0
                                         & cells(_shift_tiles(ii, 1, 1)))
 
@@ -107,7 +117,7 @@ def occupancy_grid(grid: TsdGrid, use_inflation: bool = False,
     # x = (gx-1 + interp)·s (the reference's half-cell quirk), u = round(x/s)
     gx = torch.arange(1, W, dtype=tsd.dtype, device=dev)
     hu = torch.floor(gx[None, :] - 1.0 + a / (a - b) + 0.5).to(torch.int64)
-    hv = hh[:, None].expand(hu.shape)
+    hv = torch.arange(H, device=dev)[:, None].expand(hu.shape)
 
     # vertical pairs (gy-1, gx) -> (gy, gx)
     a2 = tsd[:-1, :]
@@ -118,7 +128,7 @@ def occupancy_grid(grid: TsdGrid, use_inflation: bool = False,
     vmask = v_own | v_dup
     gy = torch.arange(1, H, dtype=tsd.dtype, device=dev)
     vv = torch.floor(gy[:, None] - 1.0 + a2 / (a2 - b2) + 0.5).to(torch.int64)
-    vu = ww[None, :].expand(vv.shape)
+    vu = torch.arange(W, device=dev)[None, :].expand(vv.shape)
 
     hits = torch.zeros(H * W, dtype=torch.int32, device=dev)
     for u, v, m in ((hu, hv, hmask), (vu, vv, vmask)):
@@ -139,3 +149,42 @@ def occupancy_grid(grid: TsdGrid, use_inflation: bool = False,
     occ = torch.where(occupied, 100, occ).to(torch.int8)
     n = h_own.sum() + h_dup.sum() + v_own.sum() + v_dup.sum()
     return OccupancyResult(occ, n)
+
+
+def surface_points(grid: TsdGrid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The crossing coordinates themselves (the reference's coords list,
+    its duplicates included) as a fixed-size masked array: points
+    [H·(W−1) + (H−1)·W, 2] (the row pairs, then the column pairs, each
+    row-major) and their mask.
+
+    Coordinates replicate RayCastAxisAligned2D.cpp:52-55 / 75-78:
+    x = (gx-1+interp)·s for row scans (y = gy·s), and the transpose for
+    column scans; interp = a / (a − b), in the JAX package's order."""
+    tsd = grid.tsd
+    H, W = tsd.shape
+    s = grid.cell_size
+    dev = tsd.device
+    _, cell_ii, _, _, spill_down, spill_right = _scans(grid)
+
+    # row pairs (gy, gx-1) -> (gy, gx); the up tile's duplicate scan on
+    # tile-boundary rows
+    a = tsd[:, :-1]
+    b = tsd[:, 1:]
+    hmask = _crossings(a, b) & (cell_ii | spill_down)[:, :-1]
+    gx = torch.arange(1, W, dtype=tsd.dtype, device=dev)
+    hx = (gx[None, :] - 1.0 + a / (a - b)) * s
+    hy = (torch.arange(H, dtype=tsd.dtype, device=dev)[:, None] * s
+          ).expand(hx.shape)
+
+    # column pairs (gy-1, gx) -> (gy, gx)
+    a2 = tsd[:-1, :]
+    b2 = tsd[1:, :]
+    vmask = _crossings(a2, b2) & (cell_ii | spill_right)[:-1, :]
+    gy = torch.arange(1, H, dtype=tsd.dtype, device=dev)
+    vy = (gy[:, None] - 1.0 + a2 / (a2 - b2)) * s
+    vx = (torch.arange(W, dtype=tsd.dtype, device=dev)[None, :] * s
+          ).expand(vy.shape)
+
+    pts = torch.cat([torch.stack([hx.reshape(-1), hy.reshape(-1)], -1),
+                     torch.stack([vx.reshape(-1), vy.reshape(-1)], -1)])
+    return pts, torch.cat([hmask.reshape(-1), vmask.reshape(-1)])

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -140,7 +140,8 @@ def next_tile_initw(grid: TsdGrid, empty_inc: torch.Tensor) -> torch.Tensor:
 
 
 def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
-         data: torch.Tensor, mask: torch.Tensor, ty0: int = 0) -> TsdGrid:
+         data: torch.Tensor, mask: torch.Tensor,
+         tile_gate: Optional[torch.Tensor] = None, ty0: int = 0) -> TsdGrid:
     """Fuse one masked polar scan into the grid (TsdGrid::push).
 
     Args:
@@ -149,6 +150,8 @@ def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
       pose: (3,3) sensor pose in world frame.
       data: (B,) ranges (inf = no return; see standard_mask).
       mask: (B,) validity mask.
+      tile_gate: optional [TY, TX] bool pre-cull mask; tiles outside it
+        take no part in the update (push_tree's quadtree gate).
       ty0: the world tile row of the grid's first tile row, for a row
         block of a larger grid (parallel/sharded.py): the block's rows
         come out equal in every bit to the same rows of the larger grid's
@@ -163,6 +166,9 @@ def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
     touch, empty_inc, part_weight = tile_cull(grid, geom, pose, data, mask,
                                               ty0)
+    if tile_gate is not None:
+        touch = touch & tile_gate
+        empty_inc = empty_inc & tile_gate
 
     # ---- materialize newly-initialized tiles (TsdGridPartition::init) ----
     newly_init = touch & ~grid.tile_init
@@ -235,3 +241,62 @@ def push(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
         tile_init=grid.tile_init | touch,
         tile_initw=next_tile_initw(grid, empty_inc),
     )
+
+
+def branch_gate(grid: TsdGrid, geom: SensorPolar2D,
+                pose: torch.Tensor) -> torch.Tensor:
+    """Quadtree branch-level range-window culling, one vector test per
+    level: the pushRecursion descent (TsdGrid.cpp:357-370) tests a leaf
+    only if every ancestor branch passes the range-window part of
+    TsdGridComponent::isInRange (TsdGridComponent.cpp:46-58).  A branch's
+    centroid is the mean of its leaves' centroids and its circumradius
+    doubles a level (TsdGridBranch.cpp:42-71).
+
+    Returns the [TY, TX] bool mask of the leaves whose ancestor chain
+    survives.  The distance is sqrt(dx·dx + dy·dy), the JAX package's norm
+    in its order of operations."""
+    dtype = grid.tsd.dtype
+    dev = grid.tsd.device
+    p = grid.tile_dim
+    s = grid.cell_size
+    tr = se2.translation(pose).to(dtype)
+    trunc = grid.max_truncation
+    r_leaf = math.sqrt(2.0) * (p * s) * 0.5
+
+    gate = torch.ones((grid.tiles_y, grid.tiles_x), dtype=torch.bool,
+                      device=dev)
+    blk = 2  # tiles per block side at this level (2^level)
+    while (blk <= grid.tiles_x and blk <= grid.tiles_y
+           and grid.tiles_x % blk == 0 and grid.tiles_y % blk == 0):
+        # the mean of the block's leaf centroids, (j*p + (p+1)/2)*s a leaf
+        # (TsdGridPartition.cpp:65-70)
+        cx, cy = ((torch.arange(n // blk, dtype=dtype, device=dev)
+                   * (blk * p) + (blk - 1) * p * 0.5 + (p + 1) * 0.5) * s
+                  for n in (grid.tiles_x, grid.tiles_y))
+        dx = cx[None, :] - tr[0]
+        dy = cy[:, None] - tr[1]
+        distance = torch.sqrt(dx * dx + dy * dy)
+        r = blk * r_leaf
+        ok = ((distance - r - trunc <= geom.max_range)
+              & (distance + r + trunc >= geom.min_range))
+        gate = gate & ok.repeat_interleave(blk, 0).repeat_interleave(blk, 1)
+        blk *= 2
+    return gate
+
+
+def push_tree(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+              data: torch.Tensor, mask: torch.Tensor) -> TsdGrid:
+    """TsdGrid::pushTree (TsdGrid.cpp:286-350): the push with whole
+    quadtree branches pruned by their range window first.  The branch test
+    is conservative (a branch window contains every child's), so the
+    result equals push()'s; the gate only spares the pruned tiles' cull.
+    It runs through grid/dispatch.py::best_push, so a grid on the card
+    goes to the push kernel with the gate, never to the plain push.
+
+    The reference's pushTree loop skips push's per-beam mask check
+    (TsdGrid.cpp:321-341 vs :249-274, an older copy of the loop); as in
+    the JAX package, the mask check is kept."""
+    from ohm_tsd_slam_tpu_torch.grid import dispatch
+
+    return dispatch.best_push(grid)(grid, geom, pose, data, mask,
+                                    tile_gate=branch_gate(grid, geom, pose))

@@ -163,26 +163,36 @@ class PushCheck:
     """ops/push_cuda.py::push_cuda with the kernel's per-tile decisions
     held against grid/push.py::tile_cull and next_tile_initw at every
     call: an instance stands in for push_cuda (slam/mapping.py's
-    `_push_fn`).  `touch` and `empty_inc` must be equal on every tile,
-    `part_weight`, `tile_init` and `tile_initw` equal in every value; a
-    mismatch raises.  `stats` counts the calls, the tiles compared, the
-    tiles the pushes touched and emptied, and the mismatching tiles (0
-    unless a call raised)."""
+    `_push_fn`).  With a `tile_gate` the twin's decisions are ANDed with
+    it, as grid/push.py::push does.  `touch` and `empty_inc` must be equal
+    on every tile, `part_weight`, `tile_init` and `tile_initw` equal in
+    every value; a mismatch raises.  `stats` counts the calls, the gated
+    calls and the tiles their gates pruned, the tiles compared, the tiles
+    the pushes touched and emptied, and the mismatching tiles (0 unless a
+    call raised)."""
 
     def __init__(self):
         self.stats: Dict[str, float] = {
-            "calls": 0, "tiles": 0, "touched": 0, "emptied": 0,
+            "calls": 0, "gated_calls": 0, "pruned": 0,
+            "tiles": 0, "touched": 0, "emptied": 0,
             "touch_flips": 0, "empty_inc_flips": 0,
             "part_weight_mismatches": 0, "part_weight_max_abs_err": 0.0,
             "tile_init_mismatches": 0, "tile_initw_mismatches": 0}
 
-    def __call__(self, grid, geom, pose, data, mask, ty0=0):
+    def __call__(self, grid, geom, pose, data, mask, tile_gate=None, ty0=0):
         cull = torch.empty((grid.tiles_y, grid.tiles_x, 3),
                            dtype=torch.float32, device=grid.tsd.device)
-        out = push_cuda(grid, geom, pose, data, mask, cull=cull, ty0=ty0)
+        out = push_cuda(grid, geom, pose, data, mask, tile_gate=tile_gate,
+                        cull=cull, ty0=ty0)
         touch, empty_inc, part_weight = tile_cull(
             grid, geom, pose.to(torch.float32), data.to(torch.float32), mask,
             ty0)
+        st = self.stats
+        if tile_gate is not None:
+            touch = touch & tile_gate
+            empty_inc = empty_inc & tile_gate
+            st["gated_calls"] += 1
+            st["pruned"] += int((~tile_gate).sum())
         found = {
             "touch_flips": (cull[..., 0] > 0) != touch,
             "empty_inc_flips": (cull[..., 1] > 0) != empty_inc,
@@ -190,7 +200,6 @@ class PushCheck:
             "tile_init_mismatches": out.tile_init != (grid.tile_init | touch),
             "tile_initw_mismatches":
                 out.tile_initw != next_tile_initw(grid, empty_inc)}
-        st = self.stats
         st["calls"] += 1
         st["tiles"] += touch.numel()
         st["touched"] += int(touch.sum())

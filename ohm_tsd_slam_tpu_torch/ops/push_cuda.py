@@ -41,7 +41,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("push")
     fn = lib.tsd_push_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 12 + [_I] * 5 + [_F] * 12 + [_P]
+        fn.argtypes = [_P] * 13 + [_I] * 5 + [_F] * 12 + [_P]
         fn.restype = _I
     return lib
 
@@ -85,13 +85,15 @@ def _check(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
 def launch(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
            data: torch.Tensor, mask: torch.Tensor, out: TsdGrid,
-           cull: Optional[torch.Tensor] = None, ty0: int = 0) -> None:
+           cull: Optional[torch.Tensor] = None, ty0: int = 0,
+           gate: Optional[torch.Tensor] = None) -> None:
     """Launch the kernel on the current stream: reads `grid` and the scan
     (float32 data, bool mask, float32 3x3 pose, all contiguous and on the
     card) and writes the four arrays of `out`, a grid of the same shapes
     that shares no memory with `grid`.  `cull`, float32 [TY, TX, 3], takes
-    the cull's decisions (touch, empty_inc as 0/1, part_weight) for a
-    check against grid/push.py::tile_cull.  `ty0` as in push_cuda.
+    the cull's decisions (touch, empty_inc as 0/1 after the gate,
+    part_weight) for a check against grid/push.py::tile_cull.  `ty0` as in
+    push_cuda; `gate` None or a contiguous uint8 [TY, TX] tile gate.
     Raises if the launch is refused; counts it in push_cuda.launches."""
     lib = _lib()
     p, s = grid.tile_dim, grid.cell_size
@@ -103,6 +105,7 @@ def launch(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
             grid.tsd.data_ptr(), grid.weight.data_ptr(),
             grid.tile_init.data_ptr(), grid.tile_initw.data_ptr(),
             data.data_ptr(), mask.data_ptr(), pose.data_ptr(),
+            None if gate is None else gate.data_ptr(),
             out.tsd.data_ptr(), out.weight.data_ptr(),
             out.tile_init.data_ptr(), out.tile_initw.data_ptr(),
             None if cull is None else cull.data_ptr(),
@@ -127,16 +130,26 @@ def empty_like(grid: TsdGrid) -> TsdGrid:
 
 def push_cuda(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
               data: torch.Tensor, mask: torch.Tensor,
+              tile_gate: Optional[torch.Tensor] = None,
               cull: Optional[torch.Tensor] = None, ty0: int = 0) -> TsdGrid:
     """Fuse one masked polar scan into the grid; same contract as
-    grid/push.py::push, whose `ty0` (the world tile row of a row block's
-    first tile row) it takes.  CUDA grids must be float32.  `cull` as in
-    `launch` (CUDA grids only)."""
+    grid/push.py::push, whose `tile_gate` (a [TY, TX] bool mask of the
+    tiles that may take part) and `ty0` (the world tile row of a row
+    block's first tile row) it takes.  CUDA grids must be float32.  `cull`
+    as in `launch` (CUDA grids only)."""
     if not grid.tsd.is_cuda:
         if cull is not None:
             raise ValueError("push_cuda: only the kernel writes `cull`")
-        return push(grid, geom, pose, data, mask, ty0)
+        return push(grid, geom, pose, data, mask, tile_gate=tile_gate,
+                    ty0=ty0)
     _check(grid, geom, pose, data, mask)
+    if tile_gate is not None and (
+            tile_gate.device != grid.tsd.device
+            or tile_gate.dtype != torch.bool
+            or tuple(tile_gate.shape) != (grid.tiles_y, grid.tiles_x)):
+        raise TypeError("push_cuda: tile_gate must be a bool "
+                        f"[{grid.tiles_y}, {grid.tiles_x}] tensor on "
+                        f"{grid.tsd.device}")
     if cull is not None and (
             cull.device != grid.tsd.device or cull.dtype != torch.float32
             or tuple(cull.shape) != (grid.tiles_y, grid.tiles_x, 3)
@@ -147,8 +160,10 @@ def push_cuda(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     # no copies where the caller's tensors are float32 and contiguous
     pose = pose.to(torch.float32).contiguous()
     data = data.to(torch.float32).contiguous()
+    gate = (None if tile_gate is None
+            else tile_gate.to(torch.uint8).contiguous())
     out = empty_like(grid)
-    launch(grid, geom, pose, data, mask.contiguous(), out, cull, ty0)
+    launch(grid, geom, pose, data, mask.contiguous(), out, cull, ty0, gate)
     return out
 
 

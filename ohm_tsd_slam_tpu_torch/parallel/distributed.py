@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ohm_tsd_slam_tpu_torch.utils.device import default_device
+
 
 def local_device(device_type: Optional[str] = None) -> torch.device:
     """This process's device.  `device_type` None or "cuda" is the card,
@@ -29,11 +31,7 @@ def local_device(device_type: Optional[str] = None) -> torch.device:
     if device_type not in (None, "cuda"):
         raise ValueError(f"local_device: device_type must be \"cuda\" or "
                          f"\"cpu\", got {device_type!r}")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "the mesh runs on the CUDA device by default and "
-            "torch.cuda.is_available() is False; pass device_type=\"cpu\" "
-            "to run on the CPU")
+    default_device(device_type, "the mesh", "device_type")
     rank = int(os.environ.get("LOCAL_RANK", "0") or 0)
     return torch.device("cuda", rank % torch.cuda.device_count())
 

@@ -39,6 +39,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
+from ohm_tsd_slam_tpu_torch.utils.device import default_device
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}
 
@@ -59,13 +60,8 @@ def make_mesh(device_type: str = None,
     "cuda", which raises where there is no card: the mesh runs on the CPU
     only for a caller who names "cpu".  Another shape: build a DeviceMesh
     directly, as the JAX package's tests build a Mesh."""
-    if device_type is None:
-        device_type = "cuda"
-    if device_type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "make_mesh runs on the CUDA device by default and "
-            "torch.cuda.is_available() is False; pass device_type=\"cpu\" "
-            "to run on the CPU")
+    device_type = default_device(device_type, "make_mesh",
+                                 "device_type").type
     return init_device_mesh(device_type, _factor2(dist.get_world_size()),
                             mesh_dim_names=axes)
 
@@ -98,12 +94,24 @@ def grid_sharding(mesh: DeviceMesh, grid: TsdGrid) -> TsdGrid:
         raise ValueError(f"grid_sharding: {H} rows do not split into {sp} "
                          f"blocks of whole {td}-cell tiles")
     i = axis_index(mesh, "sp")
-    h, th = H // sp, H // sp // td
+    h = H // sp
     return dataclasses.replace(
         grid, tsd=grid.tsd[i * h:(i + 1) * h].clone(),
         weight=grid.weight[i * h:(i + 1) * h].clone(),
-        tile_init=grid.tile_init[i * th:(i + 1) * th].clone(),
-        tile_initw=grid.tile_initw[i * th:(i + 1) * th].clone())
+        tile_init=tile_sharding(mesh, grid.tile_init),
+        tile_initw=tile_sharding(mesh, grid.tile_initw))
+
+
+def tile_sharding(mesh: DeviceMesh, tiles: torch.Tensor) -> torch.Tensor:
+    """This rank's tile rows of a whole [TY, TX] per-tile array (a copy):
+    the rows grid_sharding takes of tile_init.  Raises unless the tile
+    rows split evenly over "sp"."""
+    sp = axis_size(mesh, "sp")
+    if tiles.shape[0] % sp:
+        raise ValueError(f"tile_sharding: {tiles.shape[0]} tile rows do "
+                         f"not split over {sp} ranks")
+    i, th = axis_index(mesh, "sp"), tiles.shape[0] // sp
+    return tiles[i * th:(i + 1) * th].clone()
 
 
 def robot_sharding(mesh: DeviceMesh, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""ICP pre/post filters as pure mask transforms (port of the parts of
-ohm_tsd_slam_tpu/registration/filters.py that ICP mode uses).
+"""Pre/post assignment filters as pure mask transforms (port of
+ohm_tsd_slam_tpu/registration/filters.py).
 
 A pair set is the triple (model_idx[S], dist2[S], pair_mask[S]) aligned to
 the scene points (reference: src/obvision/registration/icp/assign/filter/).
@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ohm_tsd_slam_tpu_torch.core import se2
+from ohm_tsd_slam_tpu_torch.registration.nn import project_pixels, to_int32
 
 
 def out_of_bounds_filter_2d(scene: torch.Tensor, mask: torch.Tensor,
@@ -22,6 +23,45 @@ def out_of_bounds_filter_2d(scene: torch.Tensor, mask: torch.Tensor,
     inside = ((w[:, 0] >= x_min) & (w[:, 0] <= x_max)
               & (w[:, 1] >= y_min) & (w[:, 1] <= y_max))
     return mask & inside
+
+
+def robot_footprint_filter(scene: torch.Tensor, mask: torch.Tensor,
+                           center: torch.Tensor,
+                           radius: float) -> torch.Tensor:
+    """RobotFootprintFilter (RobotFootprintFilter.cpp:41-61): mask points
+    within `radius` of the robot center (self-observations)."""
+    d = scene - center
+    return mask & (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] > radius * radius)
+
+
+def occlusion_filter(scene3d: torch.Tensor, mask: torch.Tensor,
+                     P: torch.Tensor, width: int,
+                     height: int) -> torch.Tensor:
+    """OcclusionFilter (OcclusionFilter.cpp:34-95): project the 3D scene
+    points through the 3×4 matrix P into a width×height image and keep
+    only the nearest-z point per pixel (1e-3 z tolerance).
+
+    A z-buffer by a min-scatter over the pixel indices replaces the
+    reference's sequential insert-compare loop.  As in the JAX package,
+    every point within 1e-3 of its pixel's minimum survives, where the
+    reference keeps whichever it met in a winning order: a superset that
+    differs only inside the tolerance band."""
+    z = scene3d[:, 2]
+    dw, u, v = project_pixels(scene3d, P)
+    proj_ok = (dw.abs() > 1e-12) & (z > 0)
+    u = to_int32(u)
+    v = height - 1 - to_int32(v)
+    in_img = (u >= 0) & (u < width) & (v >= 0) & (v < height)
+    consider = mask & proj_ok & in_img
+
+    pix = (v.clamp(0, height - 1) * width
+           + u.clamp(0, width - 1)).to(torch.int64)
+    zbuf = torch.full((width * height,), 10e6, dtype=scene3d.dtype,
+                      device=scene3d.device)
+    zbuf.scatter_reduce_(0, pix, torch.where(consider, z, 10e6), "amin",
+                         include_self=True)
+    occluded = consider & (z - zbuf[pix] > 1e-3)
+    return mask & ~occluded
 
 
 def distance_threshold_schedule(max_dist: float, min_dist: float,
@@ -82,3 +122,24 @@ def reciprocal_filter(model_idx: torch.Tensor, dist2: torch.Tensor,
     first = torch.full_like(best, torch.inf)
     first = first.scatter_reduce(0, idx, sid, reduce="amin")
     return is_best & (sid == first[idx])
+
+
+def trimmed_filter(dist2: torch.Tensor, pair_mask: torch.Tensor,
+                   overlap_percent: float) -> torch.Tensor:
+    """TrimmedFilter (TrimmedFilter.cpp:21-77): keep the best
+    `overlap_percent`% of the pairs by distance.
+
+    The count to keep, floor(n · p / 100), is rounded in dist2's dtype:
+    the JAX package's float32 without x64 and float64 with it (the 100
+    divides as a tensor: torch on CUDA turns a division by a Python
+    number into a product with its reciprocal).  The sort is stable, as
+    JAX's argsort, so ties keep the lower index."""
+    S = dist2.shape[0]
+    d2 = torch.where(pair_mask, dist2, torch.inf)
+    n = pair_mask.sum().to(dist2.dtype)
+    hundred = torch.full((), 100.0, dtype=dist2.dtype, device=dist2.device)
+    keep = torch.floor(n * overlap_percent / hundred).to(torch.int64)
+    order = torch.argsort(d2, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(S, dtype=order.dtype, device=order.device))
+    return pair_mask & (rank < keep)

@@ -1,6 +1,6 @@
-"""Brute-force nearest-neighbour pair assignment (port of
-ohm_tsd_slam_tpu/registration/nn.py::nearest_neighbors and
-::assign_pairs_fused).
+"""Pair assignment (port of ohm_tsd_slam_tpu/registration/nn.py):
+brute-force nearest neighbours (nearest_neighbors, assign_pairs_fused)
+and projective association of 3D clouds (projective_pairs_3d).
 
 At scan sizes (~1081 points) an exact dense [S, M] distance matrix is the
 fast path; invalid points are excluded by +inf masking, not compaction.
@@ -90,3 +90,58 @@ def assign_pairs_fused(model: torch.Tensor, model_mask: torch.Tensor,
     paired = torch.where(pmask[:, None], payload[idx.to(torch.int64)], 0.0)
     return (idx, torch.where(scene_mask, best, torch.inf), pmask,
             paired.to(scene.dtype))
+
+
+def to_int32(x: torch.Tensor) -> torch.Tensor:
+    """Whole floats to int32 as XLA converts them: NaN to 0, values out of
+    range saturated (torch's cast leaves both undefined)."""
+    x = torch.where(torch.isnan(x), 0.0, x).clamp(-2 ** 31, 2 ** 31 - 1)
+    return x.to(torch.int64).clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
+
+
+def project_pixels(pts: torch.Tensor, P: torch.Tensor):
+    """(dw, floor(du + 0.5), floor(dv + 0.5)) of [N, 3] points through the
+    3×4 projection P: du = (P[0]·(x, y, z, 1)) / dw and dv likewise, in the
+    JAX package's order of operations."""
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    dw = P[2, 0] * x + P[2, 1] * y + P[2, 2] * z + P[2, 3]
+    du = (P[0, 0] * x + P[0, 1] * y + P[0, 2] * z + P[0, 3]) / dw
+    dv = (P[1, 0] * x + P[1, 1] * y + P[1, 2] * z + P[1, 3]) / dw
+    return dw, torch.floor(du + 0.5), torch.floor(dv + 0.5)
+
+
+def projective_pairs_3d(model: torch.Tensor, scene: torch.Tensor,
+                        scene_mask: torch.Tensor, P: torch.Tensor,
+                        width: int, height: int):
+    """Projective data association (ProjectivePairAssignment.cpp:28-97):
+    the model points rasterised into a width×height index image through
+    the 3×4 projection P; each scene point projects to a pixel and pairs
+    with the model point stored there.
+
+    The rasterisation is a max-scatter into a zeroed image (the
+    reference's sequential overwrite keeps the last-written point, `amax`
+    the highest index: one of the writers, deterministic).  The reference
+    reads an image value of 0 as "no model point", so model point 0 can
+    never be matched (quirk replicated).
+
+    Returns (model_idx [S] int32, dist2 [S], pair_mask [S])."""
+    def project(pts):
+        dw, u, v = project_pixels(pts, P)
+        u, v = to_int32(u), to_int32(v)
+        inb = (u >= 0) & (v >= 0) & (u < width) & (v < height)
+        pix = v.clamp(0, height - 1) * width + u.clamp(0, width - 1)
+        return pix.to(torch.int64), (dw.abs() > 1e-9) & inb
+
+    m_pix, m_ok = project(model)
+    img = torch.zeros(width * height, dtype=torch.int32, device=model.device)
+    ids = torch.arange(model.shape[0], dtype=torch.int32, device=model.device)
+    img.scatter_reduce_(0, m_pix, torch.where(m_ok, ids, 0), "amax",
+                        include_self=True)
+
+    s_pix, s_ok = project(scene)
+    idx_m = img[s_pix]
+    pair = scene_mask & s_ok & (idx_m != 0)
+    d = scene - model[idx_m.to(torch.int64)]
+    # the sum over x, y, z in a fixed order, the same on every device
+    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    return idx_m, torch.where(pair, d2, torch.inf), pair

@@ -137,14 +137,16 @@ def standard_mask(geom: SensorPolar2D, data: torch.Tensor
 
 
 def data_to_cartesian(geom: SensorPolar2D, data: torch.Tensor,
-                      mask: torch.Tensor
+                      mask: torch.Tensor, dtype=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sensor::dataToCartesianVectorMask (Sensor.cpp:168-190): beam-aligned
-    scene points rays_local * range with a validity mask (finite & masked);
-    invalid slots are zeroed."""
-    rays = geom.rays_local(data.dtype, data.device)
+    scene points rays_local * range in `dtype` (default data's) with a
+    validity mask (finite & masked); invalid slots are zeroed."""
+    if dtype is None:
+        dtype = data.dtype
+    rays = geom.rays_local(dtype, data.device)
     valid = mask & ~torch.isinf(data)
-    coords = torch.where(valid[:, None], rays * data[:, None], 0.0)
+    coords = torch.where(valid[:, None], rays * data[:, None].to(dtype), 0.0)
     return coords, valid
 
 

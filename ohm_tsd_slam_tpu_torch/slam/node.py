@@ -81,6 +81,7 @@ from ohm_tsd_slam_tpu_torch.slam.messages import (
     pack_scan,
     unpack_scan,
 )
+from ohm_tsd_slam_tpu_torch.utils.device import default_device
 
 
 # odd multiplier that folds (seed, robot, scan counter) into one 63-bit
@@ -139,16 +140,9 @@ class SlamNode:
         """`device` None is the card ("cuda"), and raises where there is
         none: the node runs on the CPU only for a caller who asks for it
         (device="cpu", as the parity tests do)."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "SlamNode runs on the CUDA device by default and "
-                    "torch.cuda.is_available() is False; pass device=\"cpu\" "
-                    "to run on the CPU")
-            device = "cuda"
         self.config = config
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = default_device(device, "SlamNode")
         self.seed = seed     # base of the per-robot, per-scan draw streams
         self.grid = grid_state.create(config.grid, dtype=dtype,
                                       device=self.device)

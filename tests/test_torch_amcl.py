@@ -64,7 +64,8 @@ def case():
     geom = tpolar.SensorPolar2D(**GEOM)
     pose = se2.make(*POSE, dtype=F64)
     data, mask = tpolar.standard_mask(geom, torch.from_numpy(_scan(pose)))
-    g = create(GridConfig(map_size=8, cellsize=0.04), dtype=F64)
+    g = create(GridConfig(map_size=8, cellsize=0.04), dtype=F64,
+               device="cpu")
     for _ in range(3):
         g = push(g, geom, pose, data, mask)
     d = to_arrays(g)

@@ -51,7 +51,7 @@ def _grid(dtype):
                                  phi_min=math.radians(-135.0),
                                  max_range=15.0)
     g = create(GridConfig(map_size=7, cellsize=0.08, tile_dim=16),
-               dtype=dtype)
+               dtype=dtype, device="cpu")
     pose = se2.make(5.0, 5.0, 0.2, dtype=dtype)
     r = simulate_scan(pose.double().numpy(), geom.size, geom.angular_res,
                       geom.phi_min, geom.max_range,
@@ -82,7 +82,7 @@ def test_npz_both_ways(tmp_path, dtype):
     assert jg.tsd.dtype == jdt
     jpath = str(tmp_path / "jax.npz")
     jck.save_npz(jg, jpath)
-    back = tck.load_npz(jpath, dtype=tdt)       # JAX -> port
+    back = tck.load_npz(jpath, dtype=tdt, device="cpu")   # JAX -> port
     _assert_same(back, g)
     assert back.tsd.dtype == tdt and back.tile_init.dtype == torch.bool
     # the two packages write the same arrays under the same names
@@ -118,7 +118,7 @@ def test_text_round_trip_and_header(tmp_path):
     g = _grid(torch.float32)
     path = str(tmp_path / "grid.txt")
     tck.save_text(g, path)
-    g2 = tck.load_text(path)
+    g2 = tck.load_text(path, device="cpu")
     np.testing.assert_allclose(g.tsd.numpy(), g2.tsd.numpy(), rtol=1e-6,
                                atol=1e-7)
     np.testing.assert_allclose(g.weight.numpy(), g2.weight.numpy(),
@@ -130,16 +130,18 @@ def test_text_round_trip_and_header(tmp_path):
     assert head[1:3] == ["4", "7"]
     # STRING_SOURCE and a file object read the same grid
     text = open(path).read()
-    for src in (tck.load_text(text, from_string=True),
-                tck.load_text(io.StringIO(text))):
+    for src in (tck.load_text(text, from_string=True, device="cpu"),
+                tck.load_text(io.StringIO(text), device="cpu")):
         _assert_same(src, g2)
 
 
 def test_text_rejects_a_bad_layout():
     with pytest.raises(ValueError, match="layout"):
-        tck.load_text("0.05\n16\n7\n0.1\n", from_string=True)
+        tck.load_text("0.05\n16\n7\n0.1\n", from_string=True,
+                      device="cpu")
     with pytest.raises(ValueError, match="identifier"):
-        tck.load_text("0.05\n0\n1\n0.1\n7\n", from_string=True)
+        tck.load_text("0.05\n0\n1\n0.1\n7\n", from_string=True,
+                      device="cpu")
 
 
 @pytest.mark.skipif(not os.path.exists(ROOM_STORE),
@@ -147,7 +149,7 @@ def test_text_rejects_a_bad_layout():
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_reference_store_loads_as_jax_loads_it(dtype):
     tdt, jdt = DTYPES[dtype]
-    got = tck.load_text(ROOM_STORE, dtype=tdt)
+    got = tck.load_text(ROOM_STORE, dtype=tdt, device="cpu")
     want = jck.load_text(ROOM_STORE, dtype=jdt)
     _assert_same(got, want)
     assert int(got.tile_init.sum()) > 0
@@ -162,3 +164,22 @@ def test_load_on_a_device_and_save_from_it(tmp_path):
     g2 = tck.load_npz(path, dtype=torch.float64, device="cpu")
     assert g2.tsd.device.type == "cpu"
     _assert_same(g2, g)
+
+
+@pytest.mark.parametrize("codec", ["npz", "text"])
+def test_load_defaults_to_the_card(tmp_path, codec):
+    """Without a device load_npz and load_text go to the card, and say so
+    where there is none rather than falling back to the CPU; with "cpu"
+    named they build the grid there."""
+    g = _grid(torch.float64)
+    if codec == "npz":
+        path, load = _npz(tmp_path, g), tck.load_npz
+    else:
+        path, load = str(tmp_path / "g.txt"), tck.load_text
+        tck.save_text(g, path)
+    if torch.cuda.is_available():
+        assert load(path).tsd.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            load(path)
+    assert load(path, device="cpu").tsd.device.type == "cpu"

@@ -102,15 +102,18 @@ def test_run_matches_jax(log, monkeypatch, capsys):
     # POSE_TOL, and one unit of the sixth decimal the csv rounds to
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 + 1e-6)
 
-    g = load_npz(os.path.join(out, "grid.npz"), dtype=torch.float64)
-    jg = load_npz(os.path.join(jout, "grid.npz"), dtype=torch.float64)
+    g = load_npz(os.path.join(out, "grid.npz"), dtype=torch.float64,
+                 device="cpu")
+    jg = load_npz(os.path.join(jout, "grid.npz"), dtype=torch.float64,
+                  device="cpu")
     assert torch.equal(g.tsd.isnan(), jg.tsd.isnan())
     ok = ~g.tsd.isnan()
     np.testing.assert_allclose(g.tsd[ok].numpy(), jg.tsd[ok].numpy(),
                                rtol=0, atol=1e-9)
     assert torch.equal(g.tile_init, jg.tile_init)
     # the text checkpoint reads back to the grid's shape
-    assert load_text(os.path.join(out, "grid_store.txt")).tsd.shape == \
+    assert load_text(os.path.join(out, "grid_store.txt"),
+                     device="cpu").tsd.shape == \
         g.tsd.shape
     for name in ("map.pgm", "map_color.ppm"):
         with open(os.path.join(out, name), "rb") as a, \

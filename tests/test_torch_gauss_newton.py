@@ -75,7 +75,7 @@ def _jgrid(g):
 def scene():
     """The grid (both packages), the geometry and the scan from TRUE."""
     geom = tpolar.SensorPolar2D(**GEOM)
-    g = create(CFG, dtype=F64)
+    g = create(CFG, dtype=F64, device="cpu")
     for xyt in [TRUE, (5.3, 5.0, 0.0)]:
         data, mask = tpolar.standard_mask(geom, torch.from_numpy(_scan(xyt)))
         g = push(g, geom, se2.make(*xyt, dtype=F64), data, mask)

@@ -78,7 +78,7 @@ def _push_both(poses, dtype_np, ranges=None, push=push):
     jg_geom = jpolar.SensorPolar2D(**GEOM)
     tg_geom = tpolar.SensorPolar2D(**GEOM)
     jg = jcreate(JGridConfig(**GRID), dtype=jdt)
-    tg = create(GridConfig(**GRID), dtype=tdt)
+    tg = create(GridConfig(**GRID), dtype=tdt, device="cpu")
     for xyt in poses:
         r = _scan(xyt) if ranges is None else ranges
         jd, jm = jpolar.standard_mask(jg_geom, jnp.asarray(r, jdt))
@@ -237,7 +237,7 @@ def test_occupancy_and_color_match_jax(pushed64):
 
 def test_free_footprint_matches_jax():
     jg = jcreate(JGridConfig(**GRID), dtype=jnp.float64)
-    tg = create(GridConfig(**GRID), dtype=torch.float64)
+    tg = create(GridConfig(**GRID), dtype=torch.float64, device="cpu")
     for center, w, h in [((5.12, 5.12), 1.0, 1.0), ((5.4, 4.0), 0.6, 0.8),
                          ((0.1, 0.1), 1.0, 1.0)]:
         jg = jfree(jg, np.array(center), w, h)
@@ -255,3 +255,35 @@ def test_arrays_round_trip(pushed64):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     for f in ("cell_size", "max_truncation", "max_weight", "tile_dim"):
         assert getattr(back, f) == getattr(tg, f)
+
+
+def test_create_defaults_to_the_card():
+    """Without a device create goes to the card, and says so where there
+    is none rather than falling back to the CPU; with "cpu" named it
+    builds the grid there."""
+    cfg = GridConfig(**GRID)
+    if torch.cuda.is_available():
+        assert create(cfg).tsd.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            create(cfg)
+    g = create(cfg, device="cpu")
+    assert all(getattr(g, f).device.type == "cpu" for f in GRID_FIELDS)
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cpu"])
+def test_default_device_policy(monkeypatch, device):
+    """utils/device.py::default_device, the one policy of every entry
+    point: None and "cuda" are the card and raise without one, naming the
+    caller and the argument that asks for the CPU; "cpu" is the CPU."""
+    from ohm_tsd_slam_tpu_torch.utils.device import default_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if device == "cpu":
+        assert default_device(device, "create") == torch.device("cpu")
+        return
+    with pytest.raises(RuntimeError,
+                       match='^make_mesh runs on .* device_type="cpu"'):
+        default_device(device, "make_mesh", "device_type")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device(device, "create") == torch.device("cuda")

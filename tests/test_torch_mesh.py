@@ -105,7 +105,8 @@ def _grid():
     values, NaN cells, -0.0 and +0.0 cells (a collective must keep a
     signed zero) and some tiles initialised."""
     rng = np.random.default_rng(0)
-    d = to_arrays(create(GridConfig(map_size=7, cellsize=0.05)))
+    d = to_arrays(create(GridConfig(map_size=7, cellsize=0.05),
+                             device="cpu"))
     d["tsd"] = rng.uniform(-1, 1, d["tsd"].shape).astype(np.float32)
     d["tsd"][rng.random(d["tsd"].shape) < 0.2] = np.nan
     d["tsd"][:, 3::7] = -0.0

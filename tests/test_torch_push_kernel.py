@@ -25,7 +25,7 @@ import torch
 from ohm_tsd_slam_tpu_torch.config import GridConfig
 from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
-from ohm_tsd_slam_tpu_torch.grid.push import push
+from ohm_tsd_slam_tpu_torch.grid.push import branch_gate, push, push_tree
 from ohm_tsd_slam_tpu_torch.grid.state import create, to_arrays
 from ohm_tsd_slam_tpu_torch.ops.kernel_check import PushCheck
 from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
@@ -83,7 +83,7 @@ def _compare(g_ref, g_ker):
 
 
 def test_cpu_dispatch_takes_plain_push():
-    grid = create(CFG, dtype=torch.float32)
+    grid = create(CFG, dtype=torch.float32, device="cpu")
     assert best_push(grid) is push
     before = push_cuda.launches
     pose, data, mask = _scan(POSES[0], torch.float32, "cpu")
@@ -97,7 +97,7 @@ def test_cpu_dispatch_takes_plain_push():
 
 def test_cull_output_is_the_kernels_alone():
     """`cull` is written by the kernel; a CPU grid has none to write it."""
-    grid = create(CFG, dtype=torch.float32)
+    grid = create(CFG, dtype=torch.float32, device="cpu")
     pose, data, mask = _scan(POSES[0], torch.float32, "cpu")
     with pytest.raises(ValueError, match="cull"):
         push_cuda(grid, GEOM, pose, data, mask,
@@ -227,7 +227,7 @@ def _assert_rows_equal(block, whole, ty0):
 def test_plain_push_on_a_row_block(dtype, ty0, tiles):
     """A row block pushed with its first tile row `ty0` is the whole
     grid's push's rows, in every bit: the culls, the cells, the tiles."""
-    grid = create(CFG, dtype=dtype)
+    grid = create(CFG, dtype=dtype, device="cpu")
     for xyt in POSES[:2]:
         pose, data, mask = _scan(xyt, dtype, "cpu")
         grid = push(grid, GEOM, pose, data, mask)
@@ -257,3 +257,74 @@ def test_kernel_on_a_row_block(cuda_device, ty0, tiles):
     torch.cuda.synchronize()
     _assert_rows_equal(block, whole, ty0)
     assert check.stats["touched"] > 0
+
+
+def _assert_same_bits(a, b):
+    for f in ("tsd", "weight", "tile_init", "tile_initw"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes(), f
+
+
+SHORT = polar2d.SensorPolar2D(size=541, angular_res=math.radians(0.5),
+                              phi_min=math.radians(-135.0), max_range=0.5,
+                              min_range=0.01, low_reflectivity_range=1.0)
+CFG_BIG = GridConfig(map_size=9, cellsize=0.05)    # 512^2, 16x16 tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate_kind", ["branch", "random", "short_range"])
+def test_kernel_with_a_gate_matches_its_twin(cuda_device, gate_kind):
+    """The kernel with a gate: its cull equals tile_cull & gate on every
+    tile (PushCheck raises otherwise), one launch a push; with
+    branch_gate's gate the grid equals the ungated kernel's in every bit
+    (the gate is conservative), with a random one it differs."""
+    check = PushCheck()
+    rng = np.random.default_rng(5)
+    if gate_kind == "short_range":
+        cfg, geom = CFG_BIG, SHORT
+        scans = [(se2.make(12.8, 12.8, 0.0, device=cuda_device),
+                  torch.full((SHORT.size,), 0.3, device=cuda_device),
+                  torch.ones(SHORT.size, dtype=torch.bool,
+                             device=cuda_device))]
+    else:
+        cfg, geom = CFG, GEOM
+        scans = [_scan(xyt, torch.float32, cuda_device) for xyt in POSES]
+    g = g_flat = create(cfg, dtype=torch.float32, device=cuda_device)
+    before = push_cuda.launches
+    for pose, data, mask in scans:
+        if gate_kind == "random":
+            gate = torch.from_numpy(rng.random(g.tile_init.shape) < 0.6
+                                    ).to(cuda_device)
+        else:
+            gate = branch_gate(g, geom, pose)
+        g = check(g, geom, pose, data, mask, tile_gate=gate)
+        g_flat = push_cuda(g_flat, geom, pose, data, mask)
+    torch.cuda.synchronize()
+    st = check.stats
+    assert push_cuda.launches == before + 2 * len(scans)
+    assert st["gated_calls"] == len(scans), st
+    assert st["touch_flips"] == st["empty_inc_flips"] == 0, st
+    if gate_kind == "random":
+        assert not torch.equal(g.tile_init, g_flat.tile_init)
+    else:
+        _assert_same_bits(g, g_flat)
+    if gate_kind == "short_range":
+        assert st["pruned"] > 0 and st["touched"] > 0, st
+
+
+@pytest.mark.cuda
+def test_push_tree_launches_the_kernel(cuda_device):
+    """push_tree on a card grid is one launch of the kernel with the gate,
+    equal to the ungated launch in every bit; the wrapper refuses a gate
+    that is not a bool tile array."""
+    pose, data, mask = _scan(POSES[0], torch.float32, cuda_device)
+    grid = create(CFG, dtype=torch.float32, device=cuda_device)
+    before = push_cuda.launches
+    out = push_tree(grid, GEOM, pose, data, mask)
+    assert push_cuda.launches == before + 1
+    _assert_same_bits(out, push_cuda(grid, GEOM, pose, data, mask))
+    with pytest.raises(TypeError, match="tile_gate"):
+        push_cuda(grid, GEOM, pose, data, mask,
+                  tile_gate=torch.ones(grid.tile_init.shape,
+                                       device=cuda_device))
+

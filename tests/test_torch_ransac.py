@@ -90,7 +90,8 @@ def case():
     maskS[200:209] = False
 
     geom = tpolar.SensorPolar2D(**GEOM)
-    g = create(GridConfig(map_size=7, cellsize=0.08), dtype=F64)
+    g = create(GridConfig(map_size=7, cellsize=0.08), dtype=F64,
+               device="cpu")
     pose_m = se2.make(*POSE_M, dtype=F64)
     data, mask = tpolar.standard_mask(geom, _t(_ranges(POSE_M)))
     g = push(g, geom, pose_m, data, mask)

@@ -249,7 +249,7 @@ def test_tsd_improvements_match(setup):
                          min_range=0.01, low_reflectivity_range=1.0)
     grid = create(GridConfig(map_size=int(z["map_size"]),
                              cellsize=float(z["cellsize"])),
-                  dtype=torch.float64)
+                  dtype=torch.float64, device="cpu")
     pose_m = _t(z["pose_m"])
     grid = push(grid, geom, pose_m, _t(z["data_m"]), _t(z["mask_m"]))
     T, aux = match_tsd(None, grid, pose_m, *_clouds(s), s["params"],

@@ -69,7 +69,7 @@ def _scene():
     """The two pushes of tests/test_raycast_fast.py by the port, in both
     packages' grids."""
     geom = tpolar.SensorPolar2D(**GEOM)
-    g = create(GridConfig(**GRID), dtype=F64)
+    g = create(GridConfig(**GRID), dtype=F64, device="cpu")
     for xyt in PUSH_POSES:
         d, m = tpolar.standard_mask(geom, torch.from_numpy(_scan(xyt)))
         g = push(g, geom, se2.make(*xyt, dtype=F64), d, m)

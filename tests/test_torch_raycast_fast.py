@@ -94,7 +94,7 @@ def _scene(dtype_name):
     in tests/test_torch_grid.py), in both packages."""
     dt = getattr(torch, dtype_name)
     geom = tpolar.SensorPolar2D(**GEOM)
-    g = create(GridConfig(**GRID), dtype=dt)
+    g = create(GridConfig(**GRID), dtype=dt, device="cpu")
     for xyt in PUSH_POSES:
         d, m = tpolar.standard_mask(geom, torch.as_tensor(_scan(xyt),
                                                           dtype=dt))
@@ -221,7 +221,8 @@ def _small_scene(map_size, dtype_name):
     dt = getattr(torch, dtype_name)
     geom = tpolar.SensorPolar2D(**GEOM)
     g = create(GridConfig(map_size=map_size,
-                          cellsize=10.24 / 2 ** map_size), dtype=dt)
+                          cellsize=10.24 / 2 ** map_size), dtype=dt,
+               device="cpu")
     for xyt in PUSH_POSES:
         d, m = tpolar.standard_mask(geom, torch.as_tensor(_scan(xyt),
                                                           dtype=dt))
@@ -437,7 +438,7 @@ def test_uninitialized_tiles_are_nan(scene):
     a tile never initialized must be NaN, which the port's push keeps."""
     _, tg = scene
     geom = tpolar.SensorPolar2D(**GEOM)
-    g = create(GridConfig(**GRID), dtype=tg.tsd.dtype)
+    g = create(GridConfig(**GRID), dtype=tg.tsd.dtype, device="cpu")
     for xyt in PUSH_POSES + [(3.0, 3.0, 2.0)]:
         d, m = tpolar.standard_mask(geom, torch.as_tensor(
             _scan(xyt), dtype=g.tsd.dtype))
@@ -484,7 +485,7 @@ def test_raycast_fast_matches_jax(scene, cached):
 def test_raycast_fast_empty_grid():
     geom = tpolar.SensorPolar2D(**GEOM)
     for dt in (torch.float64, torch.float32):
-        tg = create(GridConfig(**GRID), dtype=dt)
+        tg = create(GridConfig(**GRID), dtype=dt, device="cpu")
         res = rf.raycast_fast(tg, geom, se2.make(5.0, 5.0, 0.0, dtype=dt))
         assert not res.mask.any() and int(res.n_dropped) == 0
         assert not res.coords.any()
@@ -504,7 +505,8 @@ def golden_final():
 
     g = create(GridConfig(map_size=s.layout_grid, cellsize=s.cellsize,
                           truncation_radius=s.max_trunc / s.cellsize,
-                          tile_dim=2 ** s.layout_part), dtype=torch.float64)
+                          tile_dim=2 ** s.layout_part), dtype=torch.float64,
+               device="cpu")
     if s.footprint is not None:
         cx, cy, w, h = s.footprint
         g = free_footprint(g, (cx, cy), w, h)

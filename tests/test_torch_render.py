@@ -50,7 +50,8 @@ FIELDS = ("tsd", "weight", "tile_init", "tile_initw")
 @pytest.fixture(scope="module")
 def scene():
     geom = tpolar.SensorPolar2D(**GEOM)
-    g = create(GridConfig(map_size=8, cellsize=0.04), dtype=F64)
+    g = create(GridConfig(map_size=8, cellsize=0.04), dtype=F64,
+               device="cpu")
     for xyt in [(5.12, 5.12, 0.2), (5.4, 4.9, -0.3)]:
         pose = se2.make(*xyt, dtype=F64)
         r = simulate_scan(pose.numpy(), GEOM["size"], GEOM["angular_res"],

@@ -82,7 +82,7 @@ def test_golden_replay_tsd_matches_reference():
         trns_max=float(trns_max), rot_max=float(rot_max),
         trns_min=float(trns_min), rot_min=float(rot_min))
 
-    grid = create(gcfg, dtype=f64)
+    grid = create(gcfg, dtype=f64, device="cpu")
     pose = se2.make(*(float(v) for v in gt[0]), dtype=f64)
     grid = free_footprint(grid, (float(gt[0][0]), float(gt[0][1])),
                           float(fp_w), float(fp_h))

@@ -63,7 +63,8 @@ def _grid(scene, dtype):
         size=541, angular_res=math.radians(0.5),
         phi_min=math.radians(-135.0), max_range=8.0, min_range=0.01,
         low_reflectivity_range=1.0)
-    g = create(GridConfig(map_size=8, cellsize=0.04), dtype=dtype)
+    g = create(GridConfig(map_size=8, cellsize=0.04), dtype=dtype,
+               device="cpu")
     for xyt in [(5.0, 5.0, 0.4), (5.3, 5.1, 0.5), (4.8, 5.2, 0.3)]:
         r = simulate_scan(se2.make(*xyt, dtype=torch.float64).numpy(),
                           geom.size, geom.angular_res, geom.phi_min,

@@ -49,7 +49,8 @@ SP = 4                                          # ranks over 256 rows
 
 @functools.lru_cache(maxsize=None)
 def _grid():
-    g = create(GridConfig(map_size=8, cellsize=0.04), dtype=torch.float64)
+    g = create(GridConfig(map_size=8, cellsize=0.04), dtype=torch.float64,
+               device="cpu")
     for xyt in PUSH_POSES:
         pose = se2.make(*xyt, dtype=torch.float64)
         r = simulate_scan(pose.numpy(), GEOM.size, GEOM.angular_res,

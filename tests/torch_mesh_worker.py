@@ -1,6 +1,6 @@
 """Rank processes for the port's mesh tests (tests/test_torch_mesh.py,
 test_torch_shard_raycast.py, test_torch_shard_matchers.py,
-test_torch_sharded_step.py).
+test_torch_sharded_step.py, test_torch_push_tree.py).
 
 `run_world(job, inputs, shape, tmp_path)` starts one process a rank with
 torchrun's environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK,
@@ -18,6 +18,7 @@ Inputs and results are flat dicts of numpy arrays; a grid travels as its
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import socket
@@ -310,8 +311,35 @@ def job_step(mesh, inp, p):
     return out
 
 
+def job_tiles(mesh, inp, p):
+    """tile_sharding of a [TY, TX] array, grid_sharding's tile rows of a
+    grid holding it, and whether an uneven split raises."""
+    from ohm_tsd_slam_tpu_torch.config import GridConfig
+    from ohm_tsd_slam_tpu_torch.grid.state import create
+    from ohm_tsd_slam_tpu_torch.parallel.mesh import (
+        grid_sharding,
+        tile_sharding,
+    )
+
+    tiles = _t(inp["tiles"])
+    grid = create(GridConfig(map_size=7, cellsize=0.05), device="cpu")
+    grid = dataclasses.replace(grid, tile_initw=tiles,
+                               tile_init=tiles > 1.5)
+    try:
+        tile_sharding(mesh, tiles[:-1])
+        raised = False
+    except ValueError:
+        raised = True
+    return {"tiles": tile_sharding(mesh, tiles).numpy(),
+            "from_grid": grid_sharding(mesh, grid).tile_initw.numpy(),
+            "tile_init": tile_sharding(mesh, tiles).numpy(),
+            "init_rows": grid_sharding(mesh, grid).tile_init.numpy(),
+            "init_want": tile_sharding(mesh, tiles > 1.5).numpy(),
+            "raised": np.array(raised)}
+
+
 JOBS = {"mesh": job_mesh, "raycast": job_raycast, "matchers": job_matchers,
-        "step": job_step}
+        "step": job_step, "tiles": job_tiles}
 
 
 def main(argv) -> int:
