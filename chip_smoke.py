@@ -43,7 +43,14 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       simulated scans per robot through process_scan, then publish_map;
       then the caster's kernels against their twins on the grid it built,
       and kernel E on that grid's layer stack against its twin and against
-      the pack of kernels A + B (two routes to one answer);
+      the pack of kernels A + B (two routes to one answer); then the ICP
+      histories: ICP_RECORD_SCANS of the path's icp calls, with the
+      arguments localize_step passed (1081 beams, 25 iterations, float32),
+      run again with IcpParams.record_pairs and record_T off and then on
+      (on without a host sync): T, rms, pairs, iterations, state and the
+      rms and pair histories equal in every bit, to each other and to the
+      path's own call, T_history at the last iteration equal to T, each
+      iteration's recorded mask summing to its pair count;
    b. general extraction: SlamNode at map_size 6 (64 cells a row, narrower
       than kernels A and B take), ICP mode: kernel E once per grid
       version, A and B never;
@@ -158,6 +165,7 @@ SCANS_NARROW = 15            # the general-extraction path
 SCANS_GN = 30                # mode GN (one robot)
 SCANS_AMCL = 20              # mode AMCL, then the kidnap scan
 SCANS_ODOM = 20              # the ICP path with the odometry rescue
+ICP_RECORD_SCANS = 20        # ICP-path icp calls rerun with the histories on
 N_TIMED = 25
 # render gradients, card against the CPU port (float32), as a share of the
 # largest magnitude; TwinPoint and multi-init transforms, card against CPU
@@ -844,6 +852,88 @@ def main_path(dev, label: str, push_check):
     return node, launches
 
 
+def keep_icp_calls(calls: list):
+    """Wrap the icp that localize_step calls so that each call's arguments
+    and result are kept (references: no copy, no launch, no sync); returns
+    the function that puts the original back."""
+    from ohm_tsd_slam_tpu_torch.slam import localize
+
+    orig = localize.icp
+
+    def kept(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        calls.append((args, kwargs, res))
+        return res
+
+    localize.icp = kept
+    return lambda: setattr(localize, "icp", orig)
+
+
+def icp_record_check(calls: list, label: str) -> dict:
+    """ICP_RECORD_SCANS of the ICP path's icp calls, spread over the path,
+    run again on their own arguments with both history flags off, then
+    with both on (under set_sync_debug_mode("error")).  Every output the
+    two share is equal in every bit, and equal to the path's own call;
+    T_history[iterations - 1] is T; each iteration's recorded mask sums to
+    its pair count.  Prints the counts checked and both calls' times on
+    the path's last call; returns those two calls for icp_kernel_counts."""
+    from ohm_tsd_slam_tpu_torch.registration.icp import icp
+
+    fields = ("T", "rms", "pairs", "iterations", "state", "rms_history",
+              "pair_history")
+    assert len(calls) >= ICP_RECORD_SCANS, len(calls)
+    picked = calls[::len(calls) // ICP_RECORD_SCANS][:ICP_RECORD_SCANS]
+    out = {"calls": 0, "iterations": 0, "fields_equal": 0}
+    for args, kwargs, path_res in picked:
+        scene, params = args[2], args[4]
+        assert not (params.record_pairs or params.record_T), params
+        assert params.iterations == 25 and scene.shape == (BEAMS, 2)
+        assert scene.dtype == torch.float32
+        on_params = dataclasses.replace(params, record_pairs=True,
+                                        record_T=True)
+        off = icp(*args, **kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            on = icp(*args[:4], on_params, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert off.T_history is off.pair_idx_history is None
+        assert off.pair_mask_history is None
+        for f in fields:
+            assert bits_equal(getattr(off, f), getattr(on, f)), f
+            assert bits_equal(getattr(off, f), getattr(path_res, f)), f
+            out["fields_equal"] += 2
+        n = int(on.iterations)
+        assert 0 < n <= params.iterations
+        assert tuple(on.pair_idx_history.shape) == (25, BEAMS)
+        assert tuple(on.pair_mask_history.shape) == (25, BEAMS)
+        assert tuple(on.T_history.shape) == (25, 3, 3)
+        assert on.pair_idx_history.dtype == torch.int32
+        assert bits_equal(on.T_history[n - 1], on.T)
+        assert torch.equal(on.pair_mask_history.sum(1), on.pair_history)
+        out["calls"] += 1
+        out["iterations"] += n
+    args, kwargs, _ = calls[-1]
+    on_params = dataclasses.replace(args[4], record_pairs=True,
+                                    record_T=True)
+    fns = {"icp flags off (the ICP path's last call)":
+           lambda: icp(*args, **kwargs),
+           "icp flags on (the same call)":
+           lambda: icp(*args[:4], on_params, **kwargs)}
+    t = {name: statistics.median(time_cuda(fn)) for name, fn in fns.items()}
+    print(f"icp histories: {out['calls']} of the ICP path's "
+          f"{len(calls)} icp calls ({BEAMS} beams, 25 iterations, float32) "
+          f"run again flags off and on: {out['fields_equal']} outputs equal "
+          f"in every bit (off to on, off to the path's call), "
+          f"T_history[iterations - 1] == T and the mask sums equal to "
+          f"pair_history on {out['iterations']} iterations, shapes "
+          f"[25, {BEAMS}] and [25, 3, 3], no host sync with the flags on; "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+          + f" [{label}]")
+    return fns
+
+
 def main_grid_check(node, total: dict) -> dict:
     """The caster's kernels against their twins on the grid the main path
     built, from each robot's last pose; the result against the exact
@@ -1481,6 +1571,23 @@ def device_kernel_counts(node, label: str, more: dict) -> None:
             if found is None else
             f"{found[0]} launched, {found[1]:.4f} ms of device time")
             + f" [{label}]")
+
+
+def icp_kernel_counts(fns: dict, label: str) -> None:
+    """Device kernels of icp with the history flags off and on, from one
+    profiler session (after device_kernel_counts: the profiler's hooks
+    slow every later launch)."""
+    found = device_kernels(*fns.values())
+    for name, got in zip(fns, found):
+        print(f"device kernels {name}: " + (
+            "not measured (the profiler shows no device activity)"
+            if got is None else
+            f"{got[0]} launched, {got[1]:.4f} ms of device time")
+            + f" [{label}]")
+    if None not in found:
+        print(f"icp histories: the flags add {found[1][0] - found[0][0]} "
+              f"device kernels and {found[1][1] - found[0][1]:.4f} ms of "
+              f"device time a call [{label}]")
 
 
 def stage_times(node, label: str) -> dict:
@@ -3391,8 +3498,16 @@ def main() -> int:
     for name, stats in compact_check(dev, caster_stats).items():
         print(f"kernel check compact_channels {name}: {json.dumps(stats)}")
 
-    # 4a. the ICP-mode path, then the caster's kernels on the grid it built
-    node, launches = main_path(dev, label, push_check)
+    # 4a. the ICP-mode path, then the caster's kernels on the grid it
+    # built, then its icp calls again with the histories on
+    icp_calls = []
+    restore_icp = keep_icp_calls(icp_calls)
+    try:
+        node, launches = main_path(dev, label, push_check)
+    finally:
+        restore_icp()
+    icp_fns = icp_record_check(icp_calls, label)
+    del icp_calls
     for name, stats in main_grid_check(node, caster_stats).items():
         print(f"kernel check caster main-path grid {name}: "
               f"{json.dumps(stats)}")
@@ -3472,6 +3587,7 @@ def main() -> int:
           f"run), max |pose - truth| {cli['max_err']:.6f} m [{label}]")
     bounds = kernel_bounds(facts)
     device_kernel_counts(node, label, steps)
+    icp_kernel_counts(icp_fns, label)
 
     def entry(name, fn, replaces, key, launches_, err, bound, library=None,
               **extra):

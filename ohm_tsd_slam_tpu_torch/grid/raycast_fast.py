@@ -68,6 +68,8 @@ from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
 MAX_SEGMENTS = 32768
 WINDOW = 8           # replay samples per candidate window
 BACKOFF = 2.0        # window starts this many steps before the candidate
+# backward-compat alias (overflow capacity)
+MAX_CROSSINGS = MAX_SEGMENTS
 ROUNDS = 4           # candidate/replay rounds
 COVER = WINDOW - BACKOFF - 2.0   # next candidate at least this far on
 # segments per chunk of the candidate sweep's twin: the [beams, chunk]

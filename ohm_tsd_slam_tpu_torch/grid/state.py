@@ -79,17 +79,31 @@ class TsdGrid:
         return self.tile_init.shape[1]
 
     @property
+    def min_x(self) -> float:
+        return 0.0
+
+    @property
     def max_x(self) -> float:
         return self.cells_x * self.cell_size
+
+    @property
+    def min_y(self) -> float:
+        return 0.0
 
     @property
     def max_y(self) -> float:
         return self.cells_y * self.cell_size
 
+    def centroid(self) -> tuple:
+        # TsdGrid::getCentroid (TsdGrid.cpp:200-204)
+        return (0.5 * (self.min_x + self.max_x),
+                0.5 * (self.min_y + self.max_y))
+
     def is_inside(self, position: torch.Tensor) -> torch.Tensor:
         """TsdGrid::isInsideGrid (TsdGrid.h:342-347)."""
         x, y = position[0], position[1]
-        return (x > 0.0) & (x < self.max_x) & (y > 0.0) & (y < self.max_y)
+        return ((x > self.min_x) & (x < self.max_x)
+                & (y > self.min_y) & (y < self.max_y))
 
 
 def create(config: GridConfig, dtype=torch.float32, device=None) -> TsdGrid:

@@ -60,6 +60,15 @@ class IcpResult(NamedTuple):
     state: torch.Tensor        # IcpState code
     rms_history: torch.Tensor  # per iteration (NaN after exit)
     pair_history: torch.Tensor  # per iteration (0 after exit)
+    # per-iteration pair assignments ([iters, S] model index / active
+    # mask), filled when IcpParams.record_pairs (Trace's addAssignment
+    # pair payload, Trace.cpp:123-142)
+    pair_idx_history: Optional[torch.Tensor] = None
+    pair_mask_history: Optional[torch.Tensor] = None
+    # per-iteration accumulated transforms ([iters, 3, 3]; frozen copies
+    # of T after exit), filled when IcpParams.record_T: the golden
+    # per-iteration diff against the compiled reference (Icp.cpp:493-508)
+    T_history: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -82,6 +91,11 @@ class IcpParams:
     # "closed_form" (ClosedFormEstimator2D, the reference default) or
     # "point_to_line" (PointToLine2DEstimator; needs model normals)
     estimator: str = "closed_form"
+    # record per-iteration pair assignments for the Trace subsystem
+    # (costly: [iters, S] extra outputs; off by default)
+    record_pairs: bool = False
+    # record per-iteration accumulated transforms (golden parity diff)
+    record_T: bool = False
     # fused pair assignment (nn.assign_pairs_fused) instead of the modular
     # nearest_neighbors + filter chain; equal results
     fused: bool = True
@@ -158,6 +172,7 @@ def icp(model: torch.Tensor, model_mask: torch.Tensor,
     state = torch.full((), int(IcpState.PROCESSING), dtype=torch.int32,
                        device=dev)
     rms_h, pair_h, ran = [], [], []
+    idx_h, mask_h, T_h = [], [], []
     for it in range(params.iterations):
         scene_cur = se2.transform_points(T, scene)
 
@@ -210,7 +225,12 @@ def icp(model: torch.Tensor, model_mask: torch.Tensor,
         rms_h.append(torch.where(done, torch.nan, rms))
         pair_h.append(torch.where(done, 0, npairs))
         ran.append(~done)
+        if params.record_pairs:
+            idx_h.append(idx.to(torch.int32))
+            mask_h.append(pmask & ~done)
         T = torch.where(done, T, T_new)
+        if params.record_T:
+            T_h.append(T)
         conv_cnt = torch.where(done, conv_cnt, conv_new)
         state = torch.where(done, state, new_state)
         rms_prev = torch.where(done, rms_prev, rms)
@@ -223,4 +243,9 @@ def icp(model: torch.Tensor, model_mask: torch.Tensor,
     return IcpResult(T=T, rms=rms_prev,
                      pairs=pair_h.index_select(0, last)[0], iterations=iters,
                      state=state, rms_history=torch.stack(rms_h),
-                     pair_history=pair_h)
+                     pair_history=pair_h,
+                     pair_idx_history=(torch.stack(idx_h)
+                                       if params.record_pairs else None),
+                     pair_mask_history=(torch.stack(mask_h)
+                                        if params.record_pairs else None),
+                     T_history=torch.stack(T_h) if params.record_T else None)

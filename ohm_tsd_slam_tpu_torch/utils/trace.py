@@ -104,11 +104,9 @@ class Trace:
         """Record a whole IcpResult history (the functional analogue of
         the per-step hook at Icp.cpp:430-444).
 
-        Where the result carries per-iteration pair histories
-        (pair_idx_history, pair_mask_history: the JAX package's
-        IcpParams.record_pairs), the (model_idx, scene_idx) assignments are
-        recorded too (Trace::addAssignment's pair payload); the port's
-        IcpResult has none, and its iterations record no pairs."""
+        When the ICP ran with IcpParams.record_pairs, the per-iteration
+        (model_idx, scene_idx) pair assignments are recorded too
+        (Trace::addAssignment's pair payload)."""
         rms = _np(result.rms_history)
         idx_h = getattr(result, "pair_idx_history", None)
         mask_h = getattr(result, "pair_mask_history", None)

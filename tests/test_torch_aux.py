@@ -291,7 +291,7 @@ def test_ransac_trace_matches_reference_and_jax(tmp_path):
 
 def test_icp_history_is_recorded(tmp_path):
     """add_icp_history on the port's IcpResult: one record an iteration
-    that ran (no pairs: the port's ICP keeps no pair history)."""
+    that ran (no pairs: the ICP ran without IcpParams.record_pairs)."""
     from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams, icp
 
     rng = np.random.default_rng(0)
@@ -308,3 +308,42 @@ def test_icp_history_is_recorded(tmp_path):
     assert 0 < ran == len(trace._scenes)
     trace.serialize(str(tmp_path / "icp"))
     assert os.path.exists(str(tmp_path / "icp" / "scene_000.dat"))
+    assert os.path.getsize(tmp_path / "icp" / "pairs_000.dat") == 0
+
+
+def test_trace_records_pair_assignments(tmp_path):
+    """tests/test_aux.py::test_trace_records_pair_assignments for the port:
+    IcpParams.record_pairs gives add_icp_history the per-iteration pair
+    assignments, and the folder equals the one the JAX package's Trace
+    writes for its own ICP on the same inputs (float64), byte for byte."""
+    import dataclasses
+
+    from ohm_tsd_slam_tpu.registration.icp import IcpParams as JIcpParams
+    from ohm_tsd_slam_tpu.registration.icp import icp as jicp
+    from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams, icp
+
+    rng = np.random.RandomState(0)
+    model = rng.uniform(0, 4, (120, 2))
+    scene = model + np.array([0.01, -0.015])
+    params = IcpParams(iterations=8, dist_max=1.0, dist_min=0.2,
+                       record_pairs=True)
+    ones = torch.ones(120, dtype=torch.bool)
+    res = icp(torch.from_numpy(model), ones, torch.from_numpy(scene), ones,
+              params)
+    assert res.pair_idx_history.shape == (8, 120)
+    jres = jicp(jnp.asarray(model), jnp.ones(120, bool), jnp.asarray(scene),
+                jnp.ones(120, bool), JIcpParams(**dataclasses.asdict(params)))
+    folders = []
+    for name, trace, r in (("port", Trace(), res), ("jax", JTrace(), jres)):
+        trace.set_model(model)
+        trace.set_scene(scene)
+        trace.add_icp_history(scene, r)
+        out = str(tmp_path / name)
+        trace.serialize(out)
+        folders.append(_files(out))
+    pair_files = sorted(f for f in folders[0] if f.startswith("pairs_"))
+    assert pair_files
+    first = np.loadtxt(os.path.join(tmp_path / "port", pair_files[0]),
+                       ndmin=2)
+    assert first.shape[1] == 2 and first.shape[0] > 50
+    assert folders[0] == folders[1]

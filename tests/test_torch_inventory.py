@@ -5,6 +5,11 @@ ohm_tsd_slam_tpu_torch/ must bind each public top-level def and class
 (defined there or imported into it: raycast_fast's beam_geometry is
 grid/raycast.py's), take every parameter name of each
 shared function, and export every name of the JAX module's `__all__`.
+Each shared class must have each public member of the JAX class's body
+(methods and properties, `__init__` and `__call__`, dataclass and
+NamedTuple fields, class-level bindings), each method taking every
+parameter name of the JAX method, and the port's module must bind each
+public upper-case constant that the JAX module assigns at its top level.
 The sources are parsed with `ast`; neither package is imported.  What the
 port leaves out on purpose stands in the allow-lists below, each entry
 with its reason, and an entry that no longer stands for a gap fails.
@@ -47,6 +52,26 @@ ALLOWED_NAMES = {
         "folded into compact_mask when the compaction was ported",
 }
 
+# (module, class, member) of a shared class with no counterpart
+ALLOWED_MEMBERS = {
+    ("grid/raycast_fast.py", "SegmentCache", "fingerprint"):
+        "the port keys its cache on the tensor and its version "
+        "(SegmentCache.is_stale)",
+    ("registration/twinpoint.py", "TwinInject", "__init__"):
+        "the port's TwinInject is a NamedTuple of the same fields",
+}
+
+# (module, name) of an upper-case constant of the JAX module the port lacks
+ALLOWED_CONSTANTS = {
+    ("grid/raycast_fast.py", "USE_PALLAS"):
+        "JAX-only: forces the jnp candidate search on a TPU; the port's "
+        "wrappers pick kernel or twin by the tensor's device",
+    ("grid/compact.py", "FORCE_ONEHOT_PICK"):
+        "JAX-only: picks compact_mask_values' one-hot matmul on a TPU; "
+        "the port compacts by a cumsum and a gather (kernel E on the "
+        "card)",
+}
+
 # parameter names of shared functions that the port takes otherwise
 RENAMED_PARAMS = {
     "key": (("generator", "seed"),
@@ -76,11 +101,30 @@ def _params(fn: ast.FunctionDef) -> list:
     return names + [x.arg for x in (a.vararg, a.kwarg) if x is not None]
 
 
+def _members(cls: ast.ClassDef) -> dict:
+    """The bindings of a class body: name -> ("def", params) for a method
+    or property, ("bound", None) for a field or a class-level binding."""
+    out = {}
+    for node in cls.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = ("def", _params(node))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out[node.target.id] = ("bound", None)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    out[t.id] = ("bound", None)
+    return out
+
+
 def _parse(path: str) -> dict:
     """Top-level bindings of a module: name -> ("def", params) for a
-    function, ("class", None), ("import", (module, name)) for a from-import
-    of a package module, ("bound", None) for anything else; and "__all__"
-    -> the exported names."""
+    function, ("class", members) with `_members` of its body,
+    ("import", (module, name)) for a from-import of a package module,
+    ("const", None) for an upper-case name bound by assignment,
+    ("bound", None) for anything else; and "__all__" -> the exported
+    names."""
     with open(path) as f:
         tree = ast.parse(f.read())
     out = {}
@@ -88,7 +132,7 @@ def _parse(path: str) -> dict:
         if isinstance(node, ast.FunctionDef):
             out[node.name] = ("def", _params(node))
         elif isinstance(node, ast.ClassDef):
-            out[node.name] = ("class", None)
+            out[node.name] = ("class", _members(node))
         elif isinstance(node, ast.ImportFrom) and node.module:
             for alias in node.names:
                 out[alias.asname or alias.name] = (
@@ -102,8 +146,22 @@ def _parse(path: str) -> dict:
                 if isinstance(t, ast.Name) and t.id == "__all__":
                     out["__all__"] = [e.value for e in node.value.elts]
                 elif isinstance(t, ast.Name):
-                    out[t.id] = ("bound", None)
+                    out[t.id] = ("const" if _constant(t.id) else "bound",
+                                 None)
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            name = node.target.id
+            out[name] = ("const" if _constant(name) else "bound", None)
     return out
+
+
+def _constant(name: str) -> bool:
+    """A public upper-case module constant (MAX_SEGMENTS, TSDINC)."""
+    return name.isupper() and not name.startswith("_")
+
+
+def _public_member(name: str) -> bool:
+    return not name.startswith("_") or name in ("__init__", "__call__")
 
 
 def _port_module_path(module: str):
@@ -162,14 +220,52 @@ def _gaps(module: str) -> list:
             gaps.append(("name", name))
             continue
         if kind == "def" and p_kind == "def":
-            for param in what:
-                renamed = RENAMED_PARAMS.get(param, ((),))[0]
-                if param not in p_params and not set(renamed) & set(
-                        p_params):
-                    gaps.append(("param", (name, param)))
+            for param in _missing_params(what, p_params):
+                gaps.append(("param", (name, param)))
     for name in jax_defs.get("__all__", []):
         if not _jit_wrapper(name) and name not in port.get("__all__", []):
             gaps.append(("export", name))
+    return gaps
+
+
+def _missing_params(jax_params, port_params) -> list:
+    """The JAX parameter names a port function lacks (`key` as renamed)."""
+    return [p for p in jax_params if p not in port_params
+            and not set(RENAMED_PARAMS.get(p, ((),))[0]) & set(port_params)]
+
+
+def _member_gaps(module: str) -> list:
+    """Every member of a shared class, parameter of a shared method and
+    upper-case constant of the JAX module that the port's module lacks,
+    allow-listed ones included: ("member", (class, name)),
+    ("param", ("class.method", param)) and ("constant", name) pairs."""
+    port_path = os.path.join(PORT_PKG, module)
+    if not os.path.exists(port_path):
+        return []
+    gaps = []
+    for name, binding in _parse(os.path.join(JAX_PKG, module)).items():
+        if name == "__all__":
+            continue
+        kind, what = binding
+        if kind == "const":
+            if _resolve(port_path, name)[0] is None:
+                gaps.append(("constant", name))
+            continue
+        if kind != "class" or name.startswith("_"):
+            continue
+        p_kind, p_members = _resolve(port_path, name)
+        if p_kind != "class":
+            continue           # a missing class is a gap of _gaps
+        for member, (m_kind, m_params) in what.items():
+            if not _public_member(member):
+                continue
+            if member not in p_members:
+                gaps.append(("member", (name, member)))
+                continue
+            pm_kind, pm_params = p_members[member]
+            if m_kind == "def" and pm_kind == "def":
+                for param in _missing_params(m_params, pm_params):
+                    gaps.append(("param", (f"{name}.{member}", param)))
     return gaps
 
 
@@ -178,6 +274,10 @@ def _allowed(module: str, kind: str, what) -> bool:
         return any(fnmatch.fnmatch(module, pat) for pat in ALLOWED_MODULES)
     if kind in ("name", "export"):
         return (module, what) in ALLOWED_NAMES
+    if kind == "member":
+        return (module, *what) in ALLOWED_MEMBERS
+    if kind == "constant":
+        return (module, what) in ALLOWED_CONSTANTS
     return (module, *what) in ALLOWED_PARAMS
 
 
@@ -191,12 +291,25 @@ def test_port_has_the_modules_names(module):
     assert not missing, f"{module}: the port lacks {missing}"
 
 
+@pytest.mark.parametrize("module", MODULES)
+def test_port_has_the_modules_members(module):
+    """Each class that the port's module shares with the JAX module has
+    each public member of the JAX class (methods, properties, fields,
+    `__init__`, `__call__`), each shared method takes each parameter of
+    the JAX method, and the port's module binds each upper-case constant
+    that the JAX module assigns, but for the allow-lists."""
+    missing = [(kind, what) for kind, what in _member_gaps(module)
+               if not _allowed(module, kind, what)]
+    assert not missing, f"{module}: the port lacks {missing}"
+
+
 def test_allow_lists_name_real_gaps():
-    """Every allow-listed module, name and parameter is still a gap (an
-    entry that the port has since filled goes from the list), and every
-    allowed name is in a JAX module that exists."""
-    found = {(m, kind, what if kind != "param" else tuple(what))
-             for m in MODULES for kind, what in _gaps(m)}
+    """Every allow-listed module, name, member, constant and parameter is
+    still a gap (an entry that the port has since filled goes from the
+    list), and every allowed name is in a JAX module that exists."""
+    found = {(m, kind, what if kind not in ("param", "member")
+              else tuple(what))
+             for m in MODULES for kind, what in _gaps(m) + _member_gaps(m)}
     for pat in ALLOWED_MODULES:
         hits = [m for m in MODULES if fnmatch.fnmatch(m, pat)]
         assert hits and all((m, "module", m) in found for m in hits), pat
@@ -206,6 +319,11 @@ def test_allow_lists_name_real_gaps():
                 or (module, "export", name) in found), (module, name)
     for module, fn, param in ALLOWED_PARAMS:
         assert (module, "param", (fn, param)) in found, (module, fn, param)
+    for module, cls, member in ALLOWED_MEMBERS:
+        assert (module, "member", (cls, member)) in found, (module, cls,
+                                                            member)
+    for module, name in ALLOWED_CONSTANTS:
+        assert (module, "constant", name) in found, (module, name)
 
 
 def test_key_is_a_generator_everywhere():

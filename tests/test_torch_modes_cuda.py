@@ -12,7 +12,12 @@ Asserted:
     beam can flip with the last bit of its direction), which the compared
     weighted sum weighs 0;
   * localize_step in the modes GN and AMCL reads nothing back to the host
-    (torch.cuda.set_sync_debug_mode("error") raises on any sync).
+    (torch.cuda.set_sync_debug_mode("error") raises on any sync);
+  * icp with IcpParams.record_pairs and record_T on, fused and modular, on
+    a room pair at 1081 beams, gives what it gives with them off in every
+    bit and reads nothing back; its histories have their shapes, the last
+    iteration's T is the result's and each recorded mask sums to its pair
+    count.
 """
 
 import dataclasses
@@ -30,7 +35,7 @@ from ohm_tsd_slam_tpu_torch.grid.render import render_ranges
 from ohm_tsd_slam_tpu_torch.grid.state import create, from_arrays, to_arrays
 from ohm_tsd_slam_tpu_torch.registration.amcl import AmclParams
 from ohm_tsd_slam_tpu_torch.registration.gauss_newton import GnParams
-from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams
+from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams, icp
 from ohm_tsd_slam_tpu_torch.sensor import polar2d
 from ohm_tsd_slam_tpu_torch.slam.localize import (
     LocalizeParams,
@@ -51,6 +56,10 @@ GEOM = polar2d.SensorPolar2D(size=361, angular_res=math.radians(0.75),
                              phi_min=math.radians(-135.0), max_range=9.0,
                              min_range=0.01, low_reflectivity_range=1.0)
 POSE = (5.12, 5.12, 0.2)
+GEOM_1081 = polar2d.SensorPolar2D(size=1081, angular_res=math.radians(0.25),
+                                  phi_min=math.radians(-135.0),
+                                  max_range=9.0, min_range=0.01,
+                                  low_reflectivity_range=1.0)
 
 
 @pytest.fixture
@@ -60,21 +69,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _scan(xyt):
+def _scan(xyt, geom=GEOM):
     pose = se2.make(*xyt, dtype=torch.float64).numpy()
-    return simulate_scan(pose, GEOM.size, GEOM.angular_res, GEOM.phi_min,
-                         GEOM.max_range,
+    return simulate_scan(pose, geom.size, geom.angular_res, geom.phi_min,
+                         geom.max_range,
                          segments=rect_walls(1.51, 1.53, 8.47, 8.49),
                          circles=[((7.0, 7.2), 0.5)])
 
 
-def _room(device):
+def _room(device, geom=GEOM):
     """A float32 grid of three pushed scans on `device`."""
     g = create(CFG, dtype=torch.float32, device=device)
     for xyt in (POSE, (5.4, 4.9, -0.3), (5.0, 5.3, 0.6)):
         data, mask = polar2d.standard_mask(
-            GEOM, torch.from_numpy(_scan(xyt)).float().to(device))
-        g = push(g, GEOM, se2.make(*xyt, device=device), data, mask)
+            geom, torch.from_numpy(_scan(xyt, geom)).float().to(device))
+        g = push(g, geom, se2.make(*xyt, device=device), data, mask)
     return g
 
 
@@ -157,3 +166,40 @@ def test_localize_step_reads_nothing_on_card(cuda_device, mode):
                       float(res.pose[1, 2]) - 5.1) < 2.5 * CFG.cellsize
     if mode == RegMode.GN:
         assert int(res.rays_dropped) == 0
+
+
+def _bits(t):
+    return t.contiguous().cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "modular"])
+def test_icp_histories_leave_the_result_alone_on_card(cuda_device, fused):
+    grid = _room(cuda_device, GEOM_1081)
+    pose = se2.make(*POSE, device=cuda_device)
+    model = rf.raycast_fast(grid, GEOM_1081, pose)
+    data, mask = polar2d.standard_mask(GEOM_1081, torch.from_numpy(
+        _scan((5.15, 5.1, 0.21), GEOM_1081)).float().to(cuda_device))
+    scene, smask = polar2d.data_to_cartesian(GEOM_1081, data, mask)
+    params = IcpParams(iterations=25, bounds=(0.0, CFG.size_meters, 0.0,
+                                              CFG.size_meters), fused=fused)
+    args = (model.coords, model.mask, scene, smask)
+    kwargs = dict(sensor_pose=pose, model_normals=model.normals)
+    off = icp(*args, params, **kwargs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        on = icp(*args, dataclasses.replace(params, record_pairs=True,
+                                            record_T=True), **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for f in ("T", "rms", "pairs", "iterations", "state", "rms_history",
+              "pair_history"):
+        assert _bits(getattr(off, f)) == _bits(getattr(on, f)), f
+    n = int(on.iterations)
+    assert 0 < n <= 25 and int(on.pairs) > 500
+    assert on.pair_idx_history.shape == on.pair_mask_history.shape == (
+        25, GEOM_1081.size)
+    assert on.T_history.shape == (25, 3, 3)
+    assert _bits(on.T_history[n - 1]) == _bits(on.T)
+    assert torch.equal(on.pair_mask_history.sum(1), on.pair_history)
