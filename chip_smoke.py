@@ -37,7 +37,11 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    float mask, n = 16384;
 4. main paths, each with the launch counts set to 0 before and read after
    (one push launch a push, A and B or E once per grid version, C and D's
-   two entry points once each per scan):
+   two entry points once each per scan).  The node phases a-d run the
+   node's step and extraction eager (eager_step: a replay calls no
+   wrapper, so only the eager step passes each launch through the wrappers
+   that count it and the hooks that check it); c' holds the compiled step
+   against it:
    a. ICP mode: SlamNode with configs/double-laser.yaml's settings (two
       robots sharing the grid, 25 ICP iterations, the fast caster), ~30
       simulated scans per robot through process_scan, then publish_map;
@@ -58,6 +62,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       configs/single-laser.yaml's settings (match_tsd seed, then ICP), 60
       scans, twice from one seed (the pose traces must be equal bit for
       bit), then publish_map; then 10 scans each in the modes EXP and PDF;
+   c'. the compiled step (compiled_path): the ICP, map_size 6 and TSD
+      paths again on the same scans through SlamNode on localize_step_jit
+      and extract_segments_jit (CUDA graphs captured when each localizer
+      starts), every call of the step held against the eager step on the
+      same inputs in all nine fields, bit for bit (the draws included),
+      the pose traces equal to the eager paths' in every bit; then the
+      threaded runtime (threaded_path: SlamNode.start(), the double
+      laser's two robots fed at 40 Hz, the graphs captured while the other
+      threads run): no thread raises, rays_dropped 0, each robot's last
+      pose within 2.5 cells of the truth.  Their device launches are
+      counted from a trace after the times (compiled_device_launches);
    d. the same settings in mode GN (30 scans straight ahead; the push is
       its only kernel: no render, no extraction), in mode AMCL (20 scans
       and a 0.35 m / 0.35 m kidnap it must recover from within 3 cells,
@@ -124,7 +139,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    and of each matcher; the modes GN and AMCL, the render's forward and
    backward, TwinPoint and multi-init are timed too, and at the batch's
    shape raycast_fast_batch (wrapper, device, rays a second), C, D and the
-   rounds against their twins, and the multi-robot step.
+   rounds against their twins, and the multi-robot step; process_scan and
+   localize_step, eager against compiled, on the ICP and TSD paths, with
+   the scan period's 25 ms stated as met or not, after a check that the
+   compiled step and extraction replay with no host sync, and the device
+   memory each node reserves on those paths (its graphs' pools included);
+   the device kernels of one replay of each graph beside the eager step's;
+   last, the compiled ICP, map_size 6 and TSD paths driven once more under
+   torch.profiler, their launch counts set to 0 just before: each
+   kernel's device launches read from that trace by kernel name (a
+   replay's included), which must equal the eager path's plus each
+   localizer's priming replay and each new capture's warm-up.
 
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound on this card (the larger of the bytes the function
@@ -141,7 +166,9 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -149,6 +176,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -524,12 +552,14 @@ def caster_check(dev, total: dict) -> dict:
     cfg = from_flat_params({**DOUBLE_LASER, "robot_nbr": 1})
     node = SlamNode(cfg, dtype=torch.float32, device=dev)
     half = cfg.grid.size_meters * 0.5
-    for k in range(2):
-        node.process_scan(0, LaserScan(
-            ranges=scan_ranges((half, half, 0.0), 30.0), angle_min=PHI_MIN,
-            angle_increment=RES, range_max=30.0, stamp=float(k)))
-        if k == 0:
-            node.grid = noise
+    with eager_step():
+        for k in range(2):
+            node.process_scan(0, LaserScan(
+                ranges=scan_ranges((half, half, 0.0), 30.0),
+                angle_min=PHI_MIN, angle_increment=RES, range_max=30.0,
+                stamp=float(k)))
+            if k == 0:
+                node.grid = noise
     loc = node.localizers[0]
     out["noise"]["node_rays_dropped"] = loc.rays_dropped
     assert loc.params.fast_raycast and loc.rays_dropped > 0, out["noise"]
@@ -736,6 +766,38 @@ def read_counts() -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def eager_step():
+    """SlamNode's step and extraction eager on the card, for the phases
+    whose hooks must see every launch (a replay calls no wrapper):
+    slam/node.py's localize_step_jit and extract_segments_jit become
+    localize_step and extract_segments, and a localizer that starts primes
+    nothing (there is no graph to capture)."""
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.slam import localize
+    from ohm_tsd_slam_tpu_torch.slam import node as node_mod
+
+    saved = (node_mod.localize_step_jit, node_mod.extract_segments_jit,
+             node_mod.SlamNode._prime_step)
+    node_mod.localize_step_jit = localize.localize_step
+    node_mod.extract_segments_jit = rf.extract_segments
+    node_mod.SlamNode._prime_step = lambda *args: None
+    try:
+        yield
+    finally:
+        (node_mod.localize_step_jit, node_mod.extract_segments_jit,
+         node_mod.SlamNode._prime_step) = saved
+
+
+def on_eager_step(fn):
+    """fn run inside eager_step()."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with eager_step():
+            return fn(*args, **kwargs)
+    return run
+
+
 def drive(node, cfg, gts, scans) -> dict:
     """Every robot's scans through node.process_scan, in turns.  Returns
     the tracking errors per robot, the localized scans, the grid versions
@@ -777,6 +839,7 @@ def scan_msg(ranges, max_range, stamp):
                      range_max=max_range, stamp=stamp)
 
 
+@on_eager_step
 def main_path(dev, label: str, push_check):
     """The ICP-mode path: both robots through SlamNode.process_scan, then
     publish_map.  The mapper pushes through `push_check`, which calls
@@ -807,6 +870,7 @@ def main_path(dev, label: str, push_check):
     reset_counts()                   # counts from the main path only
     t0 = time.perf_counter()
     run = drive(node, cfg, gts, scans)
+    run.update(gts=gts, scans=scans)
     errs, n_scans, updates = run["errs"], run["n_scans"], run["updates"]
     occ, img = node.publish_map()
     torch.cuda.synchronize()
@@ -849,7 +913,7 @@ def main_path(dev, label: str, push_check):
     assert occ.data.shape == (CELLS, CELLS)
     assert n_occ > 1000 and n_free > 10000
     node.mapper._push_fn = kernel_push
-    return node, launches
+    return node, launches, run
 
 
 def keep_icp_calls(calls: list):
@@ -1027,6 +1091,7 @@ def main_grid_compact_check(node, total: dict) -> dict:
     return out
 
 
+@on_eager_step
 def narrow_path(dev, label: str, total: dict, push_check):
     """The general-extraction path: SlamNode at map_size 6 on the card,
     whose 64-cell rows kernels A and B do not take, ICP mode."""
@@ -1050,6 +1115,7 @@ def narrow_path(dev, label: str, total: dict, push_check):
     run = drive(node, cfg, gts, scans)
     torch.cuda.synchronize()
     launches = read_counts()
+    run.update(gts=gts, scans=scans, launches=launches)
     n_pushes = push_check.stats["calls"] - pushes_before
     node.mapper._push_fn = kernel_push
     for mod, attr, orig in saved:
@@ -1087,9 +1153,10 @@ def narrow_path(dev, label: str, total: dict, push_check):
     assert check.stats["segment_layers"]["calls"] == 0, check.stats
     assert stats["n_dropped"] == 0 and stats["agree"] > 0.98, stats
     assert stats["max_coord_gap"] < 1e-3 and stats["hits"] > 500, stats
-    return node, launches
+    return node, run
 
 
+@on_eager_step
 def run_node(dev, label: str, push_check, flat: dict, gts, scans,
              seed: int = 0, name: str = None):
     """One robot's scans through SlamNode.process_scan on the card with
@@ -1110,7 +1177,7 @@ def run_node(dev, label: str, push_check, flat: dict, gts, scans,
     t0 = time.perf_counter()
     run = drive(node, c, gts, scans)
     torch.cuda.synchronize()
-    run["wall"] = time.perf_counter() - t0
+    run.update(wall=time.perf_counter() - t0, gts=gts, scans=scans)
     run["launches"] = read_counts()
     run["pushes"] = push_check.stats["calls"] - pushes_before
     node.mapper._push_fn = kernel_push
@@ -1186,7 +1253,349 @@ def ransac_paths(dev, label: str, push_check):
           f" of its first {n} poses")
     for mode in (RegMode.EXP, RegMode.PDF):
         run_mode(mode, SCANS_OTHER + 1)
-    return node, run["launches"]
+    return node, run
+
+
+class StepCheck:
+    """Stands in for slam/node.py's localize_step_jit in compiled_path:
+    runs the compiled step (a graph replay), then the eager localize_step
+    on the same inputs with a generator of the same state, and holds all
+    nine fields of the two results, and the generator's state after, in
+    every bit."""
+
+    def __init__(self):
+        from ohm_tsd_slam_tpu_torch.slam import localize
+
+        self.jit = localize.localize_step_jit
+        self.eager = localize.localize_step
+        self.calls = self.fields = 0
+
+    def __call__(self, grid, pose, last_pose, data, mask, params,
+                 T_prereg=None, generator=None, odom_state=None,
+                 segments=None):
+        twin = None
+        if generator is not None:
+            twin = torch.Generator(device=generator.device)
+            twin.set_state(generator.get_state())
+        got = self.jit(grid, pose, last_pose, data, mask, params, T_prereg,
+                       generator, odom_state, segments)
+        want = self.eager(grid, pose, last_pose, data, mask, params,
+                          T_prereg, twin, odom_state, segments)
+        for f in got._fields:
+            assert bits_equal(getattr(got, f), getattr(want, f)), \
+                (self.calls, f, getattr(got, f), getattr(want, f))
+        if twin is not None:
+            assert torch.equal(generator.get_state(), twin.get_state())
+        self.fields += len(got._fields)
+        self.calls += 1
+        return got
+
+
+def compiled_graphs() -> dict:
+    """The node's two compiled entry points (utils/compiled.py)."""
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.slam import localize
+
+    return {"localize_step_jit": localize.localize_step_jit.compiled,
+            "extract_segments_jit": rf.extract_segments_jit.compiled}
+
+
+def compiled_path(dev, label: str, push_check, paths) -> dict:
+    """The ICP path (double laser, two robots), the general-extraction
+    path (map_size 6: kernel E) and the TSD path (single laser) through
+    SlamNode on the compiled step (localize_step_jit and
+    extract_segments_jit: CUDA graphs, captured when each localizer
+    starts), on the scans of their eager runs: `paths` holds (name, flat
+    settings, the eager run).  Every call of the step is held against the
+    eager step in every bit (StepCheck); the pose traces, hence the
+    tracking errors, equal the eager paths' in every bit; rays_dropped is
+    0 on every scan; each robot's localizer captures one graph.  Returns
+    per path the captures and their seconds, warm-up included (the
+    launches the device ran are counted by compiled_device_launches)."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode
+    from ohm_tsd_slam_tpu_torch.slam import node as node_mod
+
+    graphs = compiled_graphs()
+    out = {}
+    for name, flat, ref in paths:
+        cfg = from_flat_params(flat)
+        node = SlamNode(cfg, dtype=torch.float32, device=dev)
+        kernel_push = node.mapper._push_fn
+        node.mapper._push_fn = push_check
+        check = StepCheck()
+        node_mod.localize_step_jit = check
+        captures = {k: g.captures for k, g in graphs.items()}
+        seconds = {k: len(g.capture_s) for k, g in graphs.items()}
+        t0 = time.perf_counter()
+        try:
+            run = drive(node, cfg, ref["gts"], ref["scans"])
+            torch.cuda.synchronize()
+        finally:
+            node_mod.localize_step_jit = check.jit
+            node.mapper._push_fn = kernel_push
+        wall = time.perf_counter() - t0
+        new = {k: g.captures - captures[k] for k, g in graphs.items()}
+        capture_s = {k: g.capture_s[seconds[k]:] for k, g in graphs.items()}
+        robots = len(cfg.robots)
+        assert bits_equal(run["trace"], ref["trace"]), name
+        assert run["errs"] == ref["errs"], name
+        assert check.calls == run["n_scans"] + robots, check.calls
+        assert new["localize_step_jit"] == robots, new
+        errs = ", ".join(f"{max(e):.6f}" for e in run["errs"])
+        print(f"compiled path {name}: {run['n_scans']} localized scans, "
+              f"{check.calls} calls of localize_step_jit (the priming call "
+              f"of each robot included) equal to the eager step in all "
+              f"{check.fields} fields, bit for bit; the pose trace equal "
+              f"to the eager path's in every bit, max |pose - truth| "
+              f"{errs} m, rays_dropped 0 on each; captures "
+              f"{json.dumps(new)} in "
+              f"{json.dumps({k: [round(t, 3) for t in v] for k, v in capture_s.items()})} s; "
+              f"{wall:.3f} s with the checks [{label}]")
+        out[name] = {"captures": new, "capture_s": capture_s}
+    return out
+
+
+THREAD_LATE = 4           # robot 1 starts this many scans after robot 0
+
+
+def threaded_path(dev, label: str, ref: dict) -> dict:
+    """The threaded runtime on the compiled step: SlamNode.start() (the
+    mapper, the grid publisher and a localizer thread a robot) with the
+    double laser's two robots, the ICP path's scans (`ref`, its eager
+    run) fed through on_scan every 25 ms, robot 1's starting THREAD_LATE
+    scans after robot 0's.  Both graphs' caches are emptied first, so that robot 0's step is
+    captured before the threads have work and robot 1's while robot 0's
+    thread replays and the mapper pushes.  No thread may raise
+    (threading.excepthook); every robot's last scan is localized, with
+    rays_dropped 0 and within 2.5 cells of the truth."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode
+
+    cfg = from_flat_params(DOUBLE_LASER)
+    gts, scans = ref["gts"], ref["scans"]
+    n = len(gts[0])
+    graphs = compiled_graphs()
+    for g in graphs.values():
+        g.clear_cache()
+    captures = {k: g.captures for k, g in graphs.items()}
+    raised = []
+    hook = threading.excepthook
+    threading.excepthook = raised.append
+    node = SlamNode(cfg, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    node.start()
+    try:
+        for k in range(n + THREAD_LATE):
+            for r, rc in enumerate(cfg.robots):
+                j = k - (THREAD_LATE if r else 0)   # the robot's own scan
+                if 0 <= j < n:
+                    node.on_scan(r, scan_msg(scans[r][j],
+                                             rc.sensor.max_range, float(j)))
+            time.sleep(SCAN_PERIOD_MS * 1e-3)
+        deadline = time.monotonic() + 60.0
+        while not raised and any(
+                loc.last_result is None or loc.last_result.stamp != n - 1
+                for loc in node.localizers):
+            assert time.monotonic() < deadline, "threaded path: no result"
+            time.sleep(0.01)
+    finally:
+        node.stop()
+        threading.excepthook = hook
+    wall = time.perf_counter() - t0
+    assert not raised, [(a.thread.name, repr(a.exc_value)) for a in raised]
+    new = {k: g.captures - captures[k] for k, g in graphs.items()}
+    assert new["localize_step_jit"] == len(cfg.robots), new
+    errs = []
+    for loc, gt in zip(node.localizers, gts):
+        pose = loc.pose.cpu()
+        x, y, _ = gt[-1]
+        errs.append(math.hypot(float(pose[0, 2]) - x, float(pose[1, 2]) - y))
+        assert loc.rays_dropped == 0, loc.rays_dropped
+    assert max(errs) < 2.5 * cfg.grid.cellsize, errs
+    print(f"threaded path: SlamNode.start() with {len(cfg.robots)} robots "
+          f"on the compiled step, {n} scans each fed every "
+          f"{SCAN_PERIOD_MS} ms (robot 1 {THREAD_LATE} scans later), the "
+          f"graphs captured while the threads ran: captures "
+          f"{json.dumps(new)}, no thread raised, rays_dropped 0, "
+          f"|last pose - truth| {', '.join(f'{e:.6f}' for e in errs)} m "
+          f"(limit {2.5 * cfg.grid.cellsize} m), {wall:.3f} s [{label}]")
+    return {"captures": new, "errs": errs}
+
+
+# each wrapper's kernel by its name in csrc/*.cu, as a trace shows it
+KERNEL_SYMBOLS = {"push": "tsd_push_kernel",
+                  "segment_layers": "segment_layers_kernel",
+                  "pack_rows": "pack_rows_kernel",
+                  "segment_min": "segment_min_kernel",
+                  "window_replay": "window_replay_kernel",
+                  "window_rounds": "window_rounds_kernel",
+                  "compact_channels": "compact_kernel"}
+
+
+def traced_launches(fn) -> tuple:
+    """fn() under torch.profiler (device activity only): the device
+    launches of each kernel of KERNEL_SYMBOLS by name, those inside graph
+    replays included, or None where the trace shows no device activity;
+    and fn's result."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    patterns = {k: re.compile(rf"(?<!\w){sym}(?!\w)")
+                for k, sym in KERNEL_SYMBOLS.items()}
+    names: dict = {}
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    on_device = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        on_device += 1
+        name = e.name()
+        if name not in names:
+            names[name] = next((k for k, p in patterns.items()
+                                if p.search(name)), None)
+        if names[name] is not None:
+            counts[names[name]] += 1
+    return (counts if on_device else None), out
+
+
+def compiled_device_launches(dev, label: str, paths) -> dict:
+    """The compiled ICP, map_size 6 and TSD paths (`paths`: name, flat
+    settings, the eager run) once more through SlamNode, each with the
+    launch counts set to 0 just before and read just after, under
+    torch.profiler: each kernel's device launches are read from the trace
+    by name, a replay's included.  They must equal the eager path's plus,
+    for C, D and the rounds, each localizer's priming replay and each new
+    capture's warm-up of the step, and for A, B or E each new capture's
+    warm-up of the extraction; the pose trace equals the eager path's.
+    The wrappers' own counts (the warm-ups' and captures' calls: a replay
+    calls no wrapper) are printed beside.  Run after every time is taken:
+    the profiler's hooks stay in the process.  Returns per path the
+    trace's counts, or None where the profiler shows no device
+    activity."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode
+
+    graphs = compiled_graphs()
+    out = {}
+    for name, flat, ref in paths:
+        cfg = from_flat_params(flat)
+        node = SlamNode(cfg, dtype=torch.float32, device=dev)
+        captures = {k: g.captures for k, g in graphs.items()}
+        reset_counts()
+        found, run = traced_launches(
+            lambda: drive(node, cfg, ref["gts"], ref["scans"]))
+        wrappers = read_counts()
+        new = {k: g.captures - captures[k] for k, g in graphs.items()}
+        assert bits_equal(run["trace"], ref["trace"]), name
+        want = dict(ref["launches"])
+        for k in ("segment_min", "window_replay", "window_rounds"):
+            want[k] += len(cfg.robots) + new["localize_step_jit"]
+        for k in ("segment_layers", "pack_rows", "compact_channels"):
+            if want[k]:
+                want[k] += new["extract_segments_jit"]
+        if found is not None:
+            assert found == want, (name, found, want)
+        print(f"compiled device launches {name}: " + (
+            "not measured (the profiler shows no device activity)"
+            if found is None else json.dumps(found))
+            + f" from the trace; the eager path's {json.dumps(ref['launches'])}"
+            f"; new captures {json.dumps(new)}; the wrappers' calls "
+            f"{json.dumps(wrappers)} [{label}]")
+        out[name] = found
+    return out
+
+
+SCAN_PERIOD_MS = 25.0        # the UTM-30LX's 40 Hz: one robot's budget
+
+
+def compiled_times(dev, label: str) -> tuple:
+    """process_scan and localize_step, the eager step against the
+    compiled one, on the ICP and TSD paths (tools/torch_step_times.py's
+    timers: the two nodes in turns scan by scan, each process_scan between
+    two synchronisations; localize_step by CUDA events and by the host's
+    clock on the compiled node's last grid and pose), after a check that
+    localize_step_jit and extract_segments_jit replay with no host sync.
+    States the scan period's yardstick on the TSD path as met or not.
+    Then the device memory each node reserves over each path run alone
+    (tools/torch_step_times.py::path_memory: the compiled node's captures,
+    their buffers and pools included).  Returns the medians and, for
+    device_kernel_counts, one replay of each graph beside the eager step
+    on the same inputs."""
+    import importlib.util
+
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.slam.localize import (
+        localize_step,
+        localize_step_jit,
+    )
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_step_times", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "torch_step_times.py"))
+    steps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(steps)
+    me = sys.modules[__name__]
+    t, fns, first = {}, {}, {}
+    for path, flat, n in (("ICP", DOUBLE_LASER, SCANS_PER_ROBOT),
+                          ("TSD", SINGLE_LASER, SCANS_TSD)):
+        runs = steps.path_times(me, dev, flat, n, (False, True))
+        for v, how in ((False, "eager"), (True, "compiled")):
+            t[f"process_scan {path} path, {how} step (host clock between "
+              f"synchronisations)"] = runs[v]["process_scan"]
+            first[f"{path} {how}"] = [round(ms, 4) for ms in runs[v]["first"]]
+        node = runs[True]["node"]
+        grid, pose, last, data, mask, params, gen, seg = steps.step_inputs(
+            me, node)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            localize_step_jit(grid, pose, last, data, mask, params,
+                              generator=gen(), segments=seg)
+            rf.extract_segments_jit(grid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for name, ms in steps.step_times(me, node, N_TIMED, True).items():
+            t[f"localize_step {path} path, {name}"] = ms
+        args = (grid, pose, last, data, mask, params)
+        for name, fn in (("localize_step_jit", localize_step_jit),
+                         ("localize_step", localize_step)):
+            how = "one replay" if fn is localize_step_jit else "eager"
+            fns[f"{name} ({path} path, {how})"] = (
+                lambda fn=fn, a=args, g=gen, s=seg: fn(*a, generator=g(),
+                                                        segments=s))
+        fns[f"extract_segments_jit ({path} path's grid, one replay)"] = (
+            lambda g=grid: rf.extract_segments_jit(g))
+        del runs, node
+    for path, flat, n in (("ICP", DOUBLE_LASER, SCANS_PER_ROBOT),
+                          ("TSD", SINGLE_LASER, SCANS_TSD)):
+        for v, how in ((False, "eager"), (True, "compiled")):
+            mib = steps.path_memory(me, dev, flat, n, v)
+            print(f"device memory {path} path, {how} node, run alone (MiB "
+                  f"above what the process held before it): "
+                  f"{json.dumps(mib)} [{label}]")
+    print("sync check: localize_step_jit and extract_segments_jit replayed "
+          "with no host sync (set_sync_debug_mode error) on both paths")
+    print(f"compiled path: first scan of each robot (initialisation; the "
+          f"compiled node primes its step there) ms {json.dumps(first)} "
+          f"[{label}]")
+    medians = report_times(t, label)
+    for path in ("ICP", "TSD"):
+        e, c = (medians[f"process_scan {path} path, {how} step (host clock "
+                        f"between synchronisations)"]
+                for how in ("eager", "compiled"))
+        budget = SCAN_PERIOD_MS / (2 if path == "ICP" else 1)
+        print(f"compiled path {path}: process_scan median {c:.4f} ms "
+              f"compiled against {e:.4f} ms eager in this run; the limit "
+              f"{budget} ms a robot is {'met' if c < budget else 'not met'}"
+              f" [{label}]")
+    return medians, fns
 
 
 def gn_path(dev, label: str, push_check):
@@ -1223,6 +1632,7 @@ AMCL = {**SINGLE_LASER, "registration_mode": 5, "amcl_particles": 512,
 KIDNAP = (0.35, 0.35)
 
 
+@on_eager_step
 def amcl_path(dev, label: str, push_check):
     """Mode AMCL at full width (512 particles, 8 iterations, 140 control
     points), SCANS_AMCL scans, then a scan taken KIDNAP away from the last
@@ -1268,6 +1678,7 @@ def amcl_path(dev, label: str, push_check):
 JUMP_SCAN = 12          # the scan of the odometry path taken off the path
 
 
+@on_eager_step
 def odom_path(dev, label: str, push_check):
     """The ICP path with use_odom_rescue on (configs/single-laser.yaml's
     settings, registration_mode 0), odometry fed through
@@ -1590,8 +2001,10 @@ def icp_kernel_counts(fns: dict, label: str) -> None:
               f"device time a call [{label}]")
 
 
+@on_eager_step
 def stage_times(node, label: str) -> dict:
-    """Median times of the main path's stages on the card."""
+    """Median times of the main path's stages on the card, the node's
+    step eager (compiled_times times the compiled one)."""
     import dataclasses
 
     from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
@@ -1855,10 +2268,12 @@ def report_times(t: dict, label: str) -> dict:
     return medians
 
 
+@on_eager_step
 def ransac_times(node, narrow, label: str) -> tuple:
     """Sync checks and times of this slice's stages: the matchers and the
-    TSD-mode step on `node` (the TSD path's), the general extraction and
-    kernel E at its main-path shape on `narrow` (the map_size 6 node)."""
+    TSD-mode step on `node` (the TSD path's; process_scan on the eager
+    step), the general extraction and kernel E at its main-path shape on
+    `narrow` (the map_size 6 node)."""
     import dataclasses
 
     from ohm_tsd_slam_tpu_torch.config import RegMode
@@ -3503,7 +3918,7 @@ def main() -> int:
     icp_calls = []
     restore_icp = keep_icp_calls(icp_calls)
     try:
-        node, launches = main_path(dev, label, push_check)
+        node, launches, icp_run = main_path(dev, label, push_check)
     finally:
         restore_icp()
     icp_fns = icp_record_check(icp_calls, label)
@@ -3515,9 +3930,19 @@ def main() -> int:
           f"{json.dumps(main_grid_compact_check(node, caster_stats))}")
 
     # 4b. the general-extraction path; 4c. TSD, then EXP and PDF
-    narrow, narrow_launches = narrow_path(dev, label, caster_stats,
-                                          push_check)
-    tsd_node, tsd_launches = ransac_paths(dev, label, push_check)
+    narrow, narrow_run = narrow_path(dev, label, caster_stats, push_check)
+    narrow_launches = narrow_run["launches"]
+    tsd_node, tsd_run = ransac_paths(dev, label, push_check)
+    tsd_launches = tsd_run["launches"]
+    # 4c'. the ICP, general-extraction and TSD paths again on the compiled
+    # step, each scan's result held against the eager step's
+    icp_run["launches"] = launches
+    compiled_paths = (("ICP", DOUBLE_LASER, icp_run),
+                      ("map_size 6", NARROW, narrow_run),
+                      ("TSD", SINGLE_LASER, tsd_run))
+    compiled_path(dev, label, push_check, compiled_paths)
+    # ... and the threaded runtime on it, capturing while its threads run
+    threaded_path(dev, label, icp_run)
     # 4d. GN, AMCL with the kidnap, the odometry rescue; the render on the
     # ICP path's grid; TwinPoint and multi-init on the TSD path's scene
     gn_node, _ = gn_path(dev, label, push_check)
@@ -3567,6 +3992,9 @@ def main() -> int:
     more, more_facts = batch_times(node, batch, multi, label)
     times.update(more)
     facts.update(more_facts)
+    more, compiled_fns = compiled_times(dev, label)
+    times.update(more)
+    steps.update(compiled_fns)
     one_step = times["multi_robot_slam_step (2 robots, ICP; CUDA events "
                      "around the step, which reads the drop count once)"]
     for world, ranks in mesh.items():
@@ -3588,6 +4016,7 @@ def main() -> int:
     bounds = kernel_bounds(facts)
     device_kernel_counts(node, label, steps)
     icp_kernel_counts(icp_fns, label)
+    compiled = compiled_device_launches(dev, label, compiled_paths)
 
     def entry(name, fn, replaces, key, launches_, err, bound, library=None,
               **extra):
@@ -3599,6 +4028,12 @@ def main() -> int:
             "plain_ms": times[key.replace(" kernel", " plain")],
             "bound_ms": bounds[bound][0], "bound_by": bounds[bound][1],
             "library_ms": times[library] if library else None, **extra}
+
+    def compiled_launches(name):
+        # the compiled paths' device launches from their trace, replays'
+        # included
+        return {path: "not measured" if found is None else found[name]
+                for path, found in compiled.items()}
 
     def mesh_launches(name):
         # per world, each rank's launches in the mesh path's ICP steps
@@ -3621,6 +4056,7 @@ def main() -> int:
                         "from a CUDA graph)"],
         launches_tsd_path=tsd_launches["push"],
         launches_mesh_path=mesh_launches("push"),
+        launches_compiled_path=compiled_launches("push"),
         launches_tree_path=inventory["tree_path"]["launches"],
         max_abs_err_gated=inventory["tree_path"]["max_abs_err"],
         device_ms_gated=inventory["times"][
@@ -3640,7 +4076,8 @@ def main() -> int:
     for (name, fn, replaces), tag in zip(CASTER, "ABCDED"):
         key = next(k for k in times if k.startswith(f"{tag} {name} kernel"))
         extra = {"launches_tsd_path": tsd_launches[name],
-                 "launches_mesh_path": mesh_launches(name)}
+                 "launches_mesh_path": mesh_launches(name),
+                 "launches_compiled_path": compiled_launches(name)}
         library = None
         count = launches[name]
         # the first time of that name is the main path's call (for C the
@@ -3684,6 +4121,7 @@ def main() -> int:
             extra = {
                 "launches_tsd_path": tsd_launches[name],
                 "launches_mesh_path": mesh_launches(name),
+                "launches_compiled_path": compiled_launches(name),
                 "kernel_ms": times[
                     "E compact_channels launch alone (n=16384: "
                     "compact_channels_f32 on held buffers)"],

@@ -18,12 +18,14 @@ from ohm_tsd_slam_tpu_torch.grid.render import render_ranges
 from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
     SegmentCache,
     extract_segments,
+    extract_segments_jit,
     raycast_checked,
 )
 
 __all__ = [
     "SegmentCache",
     "extract_segments",
+    "extract_segments_jit",
     "raycast_checked",
     "TsdGrid",
     "create",

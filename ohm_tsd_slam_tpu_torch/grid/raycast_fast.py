@@ -62,6 +62,7 @@ from ohm_tsd_slam_tpu_torch.grid.raycast import (
 )
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 # max isocontour segments kept; segments beyond this are dropped AND
 # counted (n_dropped; a 1024^2 map of corridors has ~10-30k segments)
@@ -717,3 +718,77 @@ def raycast_checked(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     if int(fast.n_dropped) > 0:
         return raycast(grid, geom, pose)._replace(n_dropped=fast.n_dropped)
     return fast
+
+
+# --------------------------------------------------------------------------
+# compiled entry points (utils/compiled.py: a CUDA graph a key on the card,
+# the eager functions on the CPU)
+# --------------------------------------------------------------------------
+
+def strip_cache(segments: Optional[SegmentCache]) -> Optional[SegmentCache]:
+    """The cache without its source field and version, the host-side half
+    that a graph cannot see: a graph's key takes `is_stale` instead, and
+    the copy of the cache into a graph's buffers leaves the field out."""
+    if segments is None:
+        return None
+    return segments._replace(tsd=None, version=0)
+
+
+def bind_cache(segments: Optional[SegmentCache], grid: TsdGrid,
+               stale: bool) -> Optional[SegmentCache]:
+    """A stripped cache tied again to `grid` (the graph's buffer at a
+    capture, the caller's grid on the CPU), stale or not as decided on the
+    caller's objects."""
+    if segments is None:
+        return None
+    return segments._replace(tsd=None if stale else grid.tsd,
+                             version=grid.tsd._version)
+
+
+def _extract_tensors(grid: TsdGrid, max_segments: int) -> SegmentCache:
+    return strip_cache(extract_segments(grid, max_segments))
+
+
+_extract_graph = compiled(_extract_tensors, static_argnames=("max_segments",))
+
+
+def extract_segments_jit(grid: TsdGrid,
+                         max_segments: Optional[int] = None) -> SegmentCache:
+    """extract_segments, compiled (ohm_tsd_slam_tpu/grid/raycast_fast.py::
+    extract_segments_jit): one graph of kernels A and B (or the dense
+    layers and kernel E) a grid shape.  The cache names the caller's field
+    and its version, as extract_segments' does, so `is_stale` keeps
+    working on it."""
+    if max_segments is None:
+        max_segments = MAX_SEGMENTS
+    seg = _extract_graph(grid, max_segments)
+    return seg._replace(tsd=grid.tsd, version=grid.tsd._version)
+
+
+extract_segments_jit.compiled = _extract_graph
+
+
+def _render(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+            segments: Optional[SegmentCache], stale: bool,
+            max_segments: Optional[int]) -> RaycastResult:
+    return raycast_fast(grid, geom, pose, bind_cache(segments, grid, stale),
+                        max_segments)
+
+
+_render_graph = compiled(_render, static_argnames=("geom", "stale",
+                                                   "max_segments"))
+
+
+def raycast_fast_jit(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+                     segments: Optional[SegmentCache] = None,
+                     max_segments: Optional[int] = None) -> RaycastResult:
+    """raycast_fast, compiled (ohm_tsd_slam_tpu/grid/raycast_fast.py::
+    raycast_fast_jit, `geom` static): one graph of kernels C, D and D's
+    rounds with their glue a key.  The cache's staleness is decided here,
+    on the caller's grid, and keys the graph."""
+    stale = segments is not None and is_stale(segments, grid)
+    return _render_graph(grid, geom, pose, strip_cache(segments), stale,
+                         max_segments)
+
+
+raycast_fast_jit.compiled = _render_graph

@@ -3,6 +3,7 @@ from ohm_tsd_slam_tpu_torch.registration.icp import (
     IcpResult,
     IcpState,
     icp,
+    icp_jit,
 )
 from ohm_tsd_slam_tpu_torch.registration.amcl import AmclParams, match_amcl
 from ohm_tsd_slam_tpu_torch.registration.estimators import (
@@ -13,6 +14,7 @@ from ohm_tsd_slam_tpu_torch.registration.gauss_newton import (
     GnParams,
     GnResult,
     match_gauss_newton,
+    match_gauss_newton_jit,
 )
 from ohm_tsd_slam_tpu_torch.registration.multi_init import (
     MultiInitResult,
@@ -37,11 +39,13 @@ __all__ = [
     "IcpResult",
     "IcpState",
     "icp",
+    "icp_jit",
     "closed_form_2d",
     "point_to_line_2d",
     "GnParams",
     "GnResult",
     "match_gauss_newton",
+    "match_gauss_newton_jit",
     "MultiInitResult",
     "icp_multi_init",
     "assign_pairs_fused",

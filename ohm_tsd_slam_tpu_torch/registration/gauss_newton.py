@@ -32,6 +32,7 @@ import torch
 
 from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 
 class GnResult(NamedTuple):
@@ -194,3 +195,11 @@ def match_gauss_newton(grid: TsdGrid, sensor_pose: torch.Tensor,
     return GnResult(T=T, rms=rms, matches=n,
                     iterations=torch.full((), params.iterations,
                                           dtype=torch.int64, device=dev))
+
+
+# match_gauss_newton compiled (ohm_tsd_slam_tpu/registration/
+# gauss_newton.py::match_gauss_newton_jit): on the card one CUDA graph of
+# the iterations a key (`field_fn` and `reduce_fn` key it by identity);
+# eager on the CPU
+match_gauss_newton_jit = compiled(match_gauss_newton,
+                                  static_argnames=("params",))

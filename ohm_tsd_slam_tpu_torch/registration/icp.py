@@ -37,6 +37,7 @@ from ohm_tsd_slam_tpu_torch.registration.nn import (
     assign_pairs_fused,
     nearest_neighbors,
 )
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 
 class IcpState(enum.IntEnum):
@@ -249,3 +250,10 @@ def icp(model: torch.Tensor, model_mask: torch.Tensor,
                      pair_mask_history=(torch.stack(mask_h)
                                         if params.record_pairs else None),
                      T_history=torch.stack(T_h) if params.record_T else None)
+
+
+# icp compiled (ohm_tsd_slam_tpu/registration/icp.py::icp_jit): on the card
+# one CUDA graph of the whole loop a key (params, record_pairs and record_T
+# among them; `maxed` is a Python bool of the iteration index, so it is
+# frozen correctly), replayed with one launch; eager on the CPU
+icp_jit = compiled(icp, static_argnames=("params",))

@@ -2,6 +2,7 @@ from ohm_tsd_slam_tpu_torch.slam.localize import (
     LocalizeParams,
     LocalizeResult,
     localize_step,
+    localize_step_jit,
 )
 from ohm_tsd_slam_tpu_torch.slam.mapping import Mapper
 from ohm_tsd_slam_tpu_torch.slam.grid_pub import GridPublisher
@@ -18,6 +19,7 @@ __all__ = [
     "LocalizeParams",
     "LocalizeResult",
     "localize_step",
+    "localize_step_jit",
     "Mapper",
     "GridPublisher",
     "ImageMsg",

@@ -24,6 +24,11 @@ it with the gate flags and re-runs the step with the exact march when it
 is nonzero (slam/node.py), which gives the JAX package's guarded result
 (`raycast_checked` there) without another read of the device.  No mode
 reads the device inside the step.
+
+`localize_step_jit` is the step compiled, as the JAX package's
+`jax.jit(localize_step, static_argnames=("params",))`: on the card one
+CUDA graph a key (utils/compiled.py), in every mode, the stochastic
+matchers' draws included; on the CPU the eager step.  The node calls it.
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ from ohm_tsd_slam_tpu_torch.config import (
 from ohm_tsd_slam_tpu_torch.grid.raycast import raycast
 from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
     SegmentCache,
+    bind_cache,
+    is_stale,
     raycast_fast,
+    strip_cache,
 )
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.registration.amcl import AmclParams, match_amcl
@@ -63,6 +71,7 @@ from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
 )
 from ohm_tsd_slam_tpu_torch.slam import odometry
 from ohm_tsd_slam_tpu_torch.slam.odometry import calc_angle_02pi
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 # the modes whose RANSAC matcher seeds ICP
 _RANSAC_MODES = (int(RegMode.EXP), int(RegMode.PDF), int(RegMode.TSD))
@@ -264,3 +273,41 @@ def _finish(params: LocalizeParams, pose, last_pose, odom_state, T,
         pose=new_pose, T=T, reg_error=err, significant=significant,
         model_valid=model_valid, scene_valid=scene_valid, rms=rms,
         icp_iterations=iterations, rays_dropped=rays_dropped)
+
+
+def _step(grid: TsdGrid, pose: torch.Tensor, last_pose: torch.Tensor,
+          data: torch.Tensor, mask: torch.Tensor, params: LocalizeParams,
+          T_prereg: Optional[torch.Tensor],
+          generator: Optional[torch.Generator],
+          odom_state: Optional[odometry.OdomState],
+          segments: Optional[SegmentCache], stale: bool) -> LocalizeResult:
+    return localize_step(grid, pose, last_pose, data, mask, params,
+                         T_prereg, generator, odom_state,
+                         bind_cache(segments, grid, stale))
+
+
+_step_graph = compiled(_step, static_argnames=("params", "stale"))
+
+
+def localize_step_jit(grid: TsdGrid, pose: torch.Tensor,
+                      last_pose: torch.Tensor, data: torch.Tensor,
+                      mask: torch.Tensor, params: LocalizeParams,
+                      T_prereg: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      odom_state: Optional[odometry.OdomState] = None,
+                      segments: Optional[SegmentCache] = None
+                      ) -> LocalizeResult:
+    """localize_step compiled (ohm_tsd_slam_tpu/slam/localize.py::
+    localize_step_jit, `params` static): the same arguments and result.
+    On the card the whole step (render, matcher, ICP or Gauss-Newton, the
+    gates) is one graph a key, replayed with one launch; the key holds
+    `params`, the shapes and dtypes, which optional argument is None and
+    whether `segments` is stale for `grid` (decided here, on the caller's
+    objects).  `generator`'s draws equal the eager step's, and it is left
+    where the eager step leaves it."""
+    stale = segments is not None and is_stale(segments, grid)
+    return _step_graph(grid, pose, last_pose, data, mask, params, T_prereg,
+                       generator, odom_state, strip_cache(segments), stale)
+
+
+localize_step_jit.compiled = _step_graph

@@ -28,6 +28,13 @@ each scan advances the rescue state with it (odomRescueUpdate,
 ThreadLocalize.cpp:334-336) before `localize_step` checks the match
 against it.
 
+On the card the node runs the compiled step, as the JAX node runs its
+jitted one: `localize_step_jit` and `extract_segments_jit`, each a CUDA
+graph a key (utils/compiled.py), captured when a localizer starts (with
+the real shapes, so the capture stays out of the first scan's latency)
+and replayed every scan; the exact-march re-run of an overflowing scan
+stays eager.  On the CPU both run eagerly.
+
 The stochastic matchers (modes EXP/PDF/TSD/AMCL) draw from a
 `torch.Generator` that the node seeds anew for every robot and scan from
 its one `seed`, as the JAX node folds robot and scan counter into its base
@@ -58,7 +65,7 @@ from ohm_tsd_slam_tpu_torch.grid import state as grid_state
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
 from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
     SegmentCache,
-    extract_segments,
+    extract_segments_jit,
     is_stale,
 )
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
@@ -72,6 +79,7 @@ from ohm_tsd_slam_tpu_torch.slam.localize import (
     LocalizeParams,
     calc_angle_02pi,
     localize_step,
+    localize_step_jit,
 )
 from ohm_tsd_slam_tpu_torch.slam.mapping import Mapper
 from ohm_tsd_slam_tpu_torch.slam.messages import (
@@ -175,13 +183,13 @@ class SlamNode:
         self._segments: Optional[SegmentCache] = None
 
     def _segments_for(self, grid) -> SegmentCache:
-        """extract_segments() of `grid`, memoized on the field it came
-        from (grid/raycast_fast.py::is_stale: tensor identity and
+        """extract_segments_jit() of `grid`, memoized on the field it
+        came from (grid/raycast_fast.py::is_stale: tensor identity and
         version)."""
         with self._seg_lock:
             seg = self._segments
             if seg is None or is_stale(seg, grid):
-                seg = extract_segments(grid)
+                seg = extract_segments_jit(grid)
                 self._segments = seg
             return seg
 
@@ -257,8 +265,25 @@ class SlamNode:
             with self._grid_lock:
                 self.grid = grid
         loc.initialized = True
-        if self._needs_segments(loc):
-            self._segments_for(grid)
+        seg = self._segments_for(grid) if self._needs_segments(loc) else None
+        if self.device.type == "cuda":
+            self._prime_step(loc, grid, data, mask, seg)
+
+    def _prime_step(self, loc: Localizer, grid, data, mask, seg) -> None:
+        """Capture the step with the real shapes now, as the JAX node
+        primes its jitted step (node.py:209-218), so the localizer never
+        waits on a capture; with the rescue on, also the key of a scan
+        that has an odometry state.  The results are dropped, and the
+        draws come from a stream of their own."""
+        gen = torch.Generator(device=self.device)
+        states = [None]
+        if loc.params.odom is not None:
+            states.append(odometry.init(loc.params.odom, loc.pose, 0.0))
+        for state in states:
+            gen.manual_seed(0)
+            localize_step_jit(grid, loc.pose, loc.last_pose, data, mask,
+                              loc.params, generator=gen, odom_state=state,
+                              segments=seg)
 
     def _preprocess(self, loc: Localizer, ranges: np.ndarray):
         """laserCallBack clamp + standard mask
@@ -293,9 +318,9 @@ class SlamNode:
         count = loc.scan_count
         loc.scan_count += 1
         odom_state = self._odom_update(loc, scan.stamp)
-        res = localize_step(grid, loc.pose, loc.last_pose, data, mask,
-                            params, generator=self._draws(robot, count),
-                            odom_state=odom_state, segments=seg)
+        res = localize_step_jit(grid, loc.pose, loc.last_pose, data, mask,
+                                params, generator=self._draws(robot, count),
+                                odom_state=odom_state, segments=seg)
 
         reg_error, significant, n_over = torch.stack(
             [res.reg_error.to(torch.int64), res.significant.to(torch.int64),

@@ -161,15 +161,17 @@ def _assert_matches_jax_node(replay, fast):
 
 def test_node_extracts_once_per_grid_version(monkeypatch):
     """The segment cache is rebuilt after each mapper drain (and the
-    initial push) and reused by every scan in between."""
+    initial push) and reused by every scan in between: the compiled
+    extraction that the node calls, as the JAX node calls its jitted
+    one."""
     calls = []
-    extract = tnode.extract_segments
+    extract = tnode.extract_segments_jit
 
     def counted(grid, *a, **k):
         calls.append(grid.tsd)
         return extract(grid, *a, **k)
 
-    monkeypatch.setattr(tnode, "extract_segments", counted)
+    monkeypatch.setattr(tnode, "extract_segments_jit", counted)
     node = _cpu_node(ROOM_CFG)
     pushes = 0
     for k in range(6):
