@@ -7,7 +7,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 
 1. device: requires torch.cuda; prints the card's name and power limit;
 2. build: deletes and recompiles every CUDA kernel of the main paths from
-   csrc/ (six libraries, one nvcc process each, all started together), and
+   csrc/ (six libraries, one nvcc process each, all started together, and
+   the conditional nodes' setter of utils/compiled.py::when, glue), and
    prints ptxas's registers and stack frame of the push, window replay,
    candidate sweep, row pack and channel compaction kernels (none may have
    a stack frame or spill);
@@ -73,6 +74,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       threads run): no thread raises, rays_dropped 0, each robot's last
       pose within 2.5 cells of the truth.  Their device launches are
       counted from a trace after the times (compiled_device_launches);
+   c''. the overflow guard (overflow_path): the ICP path, 20 scans a
+      robot, on the compiled step with raycast_fast.MAX_SEGMENTS forced
+      just above the first grid's segments (the first scans fit, the
+      growing map overflows): every call equal to the eager step in all
+      nine fields and, where it overflowed, to the exact march's step in
+      every bit; one graph a robot for both kinds of scan; the node as
+      it is reads the card twice a scan, runs no eager step and captures
+      nothing; process_scan timed on both kinds of scan;
+      raycast_checked_jit and render_ranges_jit (with gradients) on its
+      grid against the eager calls and the exact march; the one-card
+      multi-robot step over a capacity below its grid's segments;
    d. the same settings in mode GN (30 scans straight ahead; the push is
       its only kernel: no render, no extraction), in mode AMCL (20 scans
       and a 0.35 m / 0.35 m kidnap it must recover from within 3 cells,
@@ -132,8 +144,24 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       occlusion_filter on a 640 x 480 depth image, trimmed_filter on the
       ICP path's last scan's pairs and surface_points on its grid, each
       equal to the CPU port's in every element;
-5. times: first a check that extract_segments, localize_step (in every
-   mode) and the push wrapper make no host sync, then medians and
+   h. the compiled entry points (entry_points_path): raycast_checked_jit,
+      raycast_jit, push_jit, push_tree_jit, occupancy_grid_jit and
+      grid_to_color_image_jit on the ICP path's grid, each call equal to
+      the eager call in every bit, captures and their seconds, eager
+      against compiled by CUDA events and by the host clock,
+      push_tree_jit's call against push_cuda's wrapper (ROADMAP item 21);
+      render_ranges_jit's forward and backward graphs against eager
+      autograd (ranges, hits and both gradients in every bit) and timed;
+      publish_map compiled against eager (the same messages); the memory
+      each entry point's graphs hold.  In 4f the world of one NCCL rank
+      holds make_sharded_step's compiled step, replay by replay, against
+      the eager step in every bit and times both; on gloo the step runs
+      eagerly (gloo's collectives run on the host and cannot be
+      captured);
+5. times: first a check that extract_segments and the push wrapper make
+   no host sync and the eager localize_step one in every mode that renders
+   (the overflow guard's read of the drop count; none in mode GN), then
+   medians and
    quartiles of 25 runs after a warm-up, each printed beside the card's
    name and power limit, and the peak device memory of the caster's stages
    and of each matcher; the modes GN and AMCL, the render's forward and
@@ -149,7 +177,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    torch.profiler, their launch counts set to 0 just before: each
    kernel's device launches read from that trace by kernel name (a
    replay's included), which must equal the eager path's plus each
-   localizer's priming replay and each new capture's warm-up.
+   localizer's priming replay and each new capture's warm-up; then the
+   overflow path and the entry points the same way (new_path_launches).
 
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound on this card (the larger of the bytes the function
@@ -345,6 +374,21 @@ def time_cuda(fn, n=N_TIMED, warmup=3) -> list:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return times
+
+
+def time_host(fn, n=N_TIMED, warmup=3) -> list:
+    """ms of each of n calls of fn() on the host's clock, between two
+    synchronisations of the card, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return times
 
 
@@ -798,31 +842,43 @@ def on_eager_step(fn):
     return run
 
 
-def drive(node, cfg, gts, scans) -> dict:
-    """Every robot's scans through node.process_scan, in turns.  Returns
-    the tracking errors per robot, the localized scans, the grid versions
-    made after the first and the pose trace (on the card)."""
+def drive(node, cfg, gts, scans, ks=None, around=None,
+          dropped=None) -> dict:
+    """Every robot's scans through node.process_scan, in turns (those of
+    the scan indices `ks`, all by default; index 0 starts each
+    localizer), `around(call)` wrapped about each after the first where
+    given (timing, counting).  Every scan's rays_dropped must be 0, or,
+    where the list `dropped` is given, is appended to it.  Returns the
+    tracking errors per robot, the localized scans, the grid versions made
+    after the first and the pose trace (on the card)."""
     n_robots = len(gts)
     errs = [[] for _ in range(n_robots)]
     trace = []
     n_scans = updates = 0
-    for k in range(len(gts[0])):
+    ks = range(len(gts[0])) if ks is None else ks
+    for k in ks:
         for r in range(n_robots):
             before = node.grid.tsd
-            out = node.process_scan(r, scan_msg(
-                scans[r][k], cfg.robots[r].sensor.max_range, float(k)))
-            updates += node.grid.tsd is not before
+            msg = scan_msg(scans[r][k], cfg.robots[r].sensor.max_range,
+                           float(k))
             if k == 0:
-                assert out is None
+                assert node.process_scan(r, msg) is None
+                updates += node.grid.tsd is not before
                 continue
+            out = (around or (lambda call: call()))(
+                lambda: node.process_scan(r, msg))
+            updates += node.grid.tsd is not before
             n_scans += 1
-            assert node.localizers[r].rays_dropped == 0, (r, k)
+            if dropped is None:
+                assert node.localizers[r].rays_dropped == 0, (r, k)
+            else:
+                dropped.append(node.localizers[r].rays_dropped)
             assert out is not None and not out.is_nan, (r, k)
             trace.append(node.localizers[r].pose)
     poses = torch.stack(trace).cpu()
     assert bool(torch.isfinite(poses).all())
     i = 0
-    for k in range(1, len(gts[0])):
+    for k in (k for k in ks if k):
         for r in range(n_robots):
             x, y, _ = gts[r][k]
             errs[r].append(math.hypot(float(poses[i, 0, 2]) - x,
@@ -1424,6 +1480,45 @@ def threaded_path(dev, label: str, ref: dict) -> dict:
 
 
 # each wrapper's kernel by its name in csrc/*.cu, as a trace shows it
+def host_syncs(fn) -> int:
+    """The synchronising CUDA operations fn() makes, from the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+@contextlib.contextmanager
+def count_host_reads(reads: list):
+    """Inside, every read of a CUDA tensor's values by the host (tolist,
+    cpu, item, bool, int, float) appends its method's name to `reads`."""
+    names = ("tolist", "cpu", "item", "__bool__", "__int__", "__float__")
+    saved = {name: getattr(torch.Tensor, name) for name in names}
+
+    def counted(name, orig):
+        def read(self, *args, **kwargs):
+            if self.is_cuda:
+                reads.append(name)
+            return orig(self, *args, **kwargs)
+        return read
+
+    for name, orig in saved.items():
+        setattr(torch.Tensor, name, counted(name, orig))
+    try:
+        yield
+    finally:
+        for name, orig in saved.items():
+            setattr(torch.Tensor, name, orig)
+
+
 KERNEL_SYMBOLS = {"push": "tsd_push_kernel",
                   "segment_layers": "segment_layers_kernel",
                   "pack_rows": "pack_rows_kernel",
@@ -1431,6 +1526,9 @@ KERNEL_SYMBOLS = {"push": "tsd_push_kernel",
                   "window_replay": "window_replay_kernel",
                   "window_rounds": "window_rounds_kernel",
                   "compact_channels": "compact_kernel"}
+
+
+TRACE_PAD_S = 0.05           # idle host time at each end of a trace
 
 
 def traced_launches(fn) -> tuple:
@@ -1445,8 +1543,12 @@ def traced_launches(fn) -> tuple:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the profiler drops device activity that its clock places outside
+        # the session's window: keep fn's work away from both edges
+        time.sleep(TRACE_PAD_S)
         out = fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     patterns = {k: re.compile(rf"(?<!\w){sym}(?!\w)")
                 for k, sym in KERNEL_SYMBOLS.items()}
     names: dict = {}
@@ -1463,6 +1565,29 @@ def traced_launches(fn) -> tuple:
         if names[name] is not None:
             counts[names[name]] += 1
     return (counts if on_device else None), out
+
+
+TRACE_SCANS = 15             # scan indices a profiler session traces
+
+
+def traced_drive(node, cfg, gts, scans) -> tuple:
+    """drive() under traced_launches, TRACE_SCANS scan indices a profiler
+    session (a whole compiled TSD path is some 380,000 kernel records);
+    the sessions' counts summed, their runs joined."""
+    found, runs = {}, []
+    n = len(gts[0])
+    for k0 in range(0, n, TRACE_SCANS):
+        part, run = traced_launches(lambda k0=k0: drive(
+            node, cfg, gts, scans, range(k0, min(n, k0 + TRACE_SCANS))))
+        runs.append(run)
+        if part is None or found is None:
+            found = None
+        else:
+            for k, v in part.items():
+                found[k] = found.get(k, 0) + v
+    trace = torch.cat([r["trace"] for r in runs])
+    return found, {"trace": trace,
+                   "n_scans": sum(r["n_scans"] for r in runs)}
 
 
 def compiled_device_launches(dev, label: str, paths) -> dict:
@@ -1489,8 +1614,7 @@ def compiled_device_launches(dev, label: str, paths) -> dict:
         node = SlamNode(cfg, dtype=torch.float32, device=dev)
         captures = {k: g.captures for k, g in graphs.items()}
         reset_counts()
-        found, run = traced_launches(
-            lambda: drive(node, cfg, ref["gts"], ref["scans"]))
+        found, run = traced_drive(node, cfg, ref["gts"], ref["scans"])
         wrappers = read_counts()
         new = {k: g.captures - captures[k] for k, g in graphs.items()}
         assert bits_equal(run["trace"], ref["trace"]), name
@@ -1596,6 +1720,548 @@ def compiled_times(dev, label: str) -> tuple:
               f"{budget} ms a robot is {'met' if c < budget else 'not met'}"
               f" [{label}]")
     return medians, fns
+
+
+SCANS_OVERFLOW = 20          # the forced-overflow ICP path, scans a robot
+
+
+def overflow_capacity(dev, cfg, scans) -> int:
+    """MAX_SEGMENTS for the overflow phase: the least multiple of 128
+    above the segments of the grid the ICP path starts from (robot 0's
+    first scan pushed at its start), so that the first scans fit and, as
+    the map grows, the later ones overflow (a fixed 1024 would overflow
+    from the first scan: that grid has some 1300 segments)."""
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode
+
+    with eager_step():
+        node = SlamNode(cfg, dtype=torch.float32, device=dev)
+        node.process_scan(0, scan_msg(scans[0][0],
+                                      cfg.robots[0].sensor.max_range, 0.0))
+    return 128 * (int(rf.extract_segments(node.grid).count) // 128 + 1)
+
+
+class GuardCheck(StepCheck):
+    """StepCheck in overflow_path: the compiled step against the eager
+    step (its guard branching on the host) in all nine fields; where the
+    fast caster overflowed, also against the eager step with the exact
+    march on the same draws, in the eight fields but rays_dropped (the
+    exact march drops nothing)."""
+
+    def __init__(self):
+        super().__init__()
+        self.over = self.clean = 0
+
+    def __call__(self, grid, pose, last_pose, data, mask, params,
+                 T_prereg=None, generator=None, odom_state=None,
+                 segments=None):
+        twin = None
+        if generator is not None:
+            twin = torch.Generator(device=generator.device)
+            twin.set_state(generator.get_state())
+        got = super().__call__(grid, pose, last_pose, data, mask, params,
+                               T_prereg, generator, odom_state, segments)
+        if int(got.rays_dropped) == 0:
+            self.clean += 1
+            return got
+        exact = self.eager(grid, pose, last_pose, data, mask,
+                           dataclasses.replace(params, fast_raycast=False),
+                           T_prereg, twin, odom_state, segments)
+        for f in got._fields:
+            if f != "rays_dropped":
+                assert bits_equal(getattr(got, f), getattr(exact, f)), \
+                    (self.calls, f)
+        assert int(exact.rays_dropped) == 0
+        self.over += 1
+        return got
+
+
+def overflow_path(dev, label: str, ref: dict) -> dict:
+    """The ICP path (double laser, two robots, SCANS_OVERFLOW scans a
+    robot) on the compiled step with raycast_fast.MAX_SEGMENTS forced
+    below the map's segments (overflow_capacity; restored after): the
+    first scans fit, the later ones overflow.
+
+    1. Every call of the compiled step is held against the eager step
+       (GuardCheck): on the overflowing scans it equals the exact march's
+       step in every bit.  One graph serves both kinds of scan: no capture
+       after each localizer's priming one.
+    2. The node as it is, on the same scans: each process_scan timed on
+       the host's clock between synchronisations, the host's reads of the
+       card counted (2 a scan: the gate flags with the drop count, then
+       the pose), the eager localize_step's calls counted (0: the node
+       never runs the eager step; a capture's warm-up would call it too).
+    3. raycast_checked_jit and render_ranges_jit (forward and both
+       gradients) on that node's grid and poses, against the eager calls
+       in every bit, and against the exact march.
+    4. The one-card multi-robot step (two robots) over the same capacity:
+       every robot rendered with the exact march under the batch's one
+       guard, rays_dropped the fast caster's."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.raycast import raycast
+    from ohm_tsd_slam_tpu_torch.grid.render import (
+        render_ranges,
+        render_ranges_jit,
+    )
+    from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
+    from ohm_tsd_slam_tpu_torch.parallel import multi_robot_slam_step
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode, localize
+    from ohm_tsd_slam_tpu_torch.slam import node as node_mod
+
+    cfg = from_flat_params(DOUBLE_LASER)
+    gts = [gt[:SCANS_OVERFLOW] for gt in ref["gts"]]
+    scans = [sc[:SCANS_OVERFLOW] for sc in ref["scans"]]
+    limit = 2.5 * cfg.grid.cellsize
+    cap = overflow_capacity(dev, cfg, scans)
+    graph = localize.localize_step_jit.compiled
+    saved = rf.MAX_SEGMENTS
+    rf.MAX_SEGMENTS = cap
+    out = {"max_segments": cap}
+    try:
+        # 1. every call against the eager step
+        node = SlamNode(cfg, dtype=torch.float32, device=dev)
+        check = GuardCheck()
+        node_mod.localize_step_jit = check
+        captures = graph.captures
+        dropped = []
+        try:
+            run = drive(node, cfg, gts, scans, dropped=dropped)
+        finally:
+            node_mod.localize_step_jit = check.jit
+        robots = len(cfg.robots)
+        assert graph.captures - captures <= robots, (graph.captures, captures)
+        assert check.over > 0 and check.clean > 0, (check.over, check.clean)
+        assert check.calls == len(dropped) + robots
+        for r, e in enumerate(run["errs"]):
+            assert max(e) < limit, (r, max(e))
+        out.update(checked_calls=check.calls, over=check.over,
+                   clean=check.clean, errs=[max(e) for e in run["errs"]])
+
+        # 2. the node as it is: times, host reads, eager steps, captures
+        node = SlamNode(cfg, dtype=torch.float32, device=dev)
+        captures = graph.captures
+        eager_calls, reads, ms = [], [], []
+        step = localize.localize_step
+
+        def counted(*args, **kwargs):
+            eager_calls.append(1)
+            return step(*args, **kwargs)
+
+        def around(call):
+            got = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with count_host_reads(got):
+                result = call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            reads.append(got)
+            return result
+
+        localize.localize_step = counted
+        timed_dropped = []
+        try:
+            timed = drive(node, cfg, gts, scans, around=around,
+                          dropped=timed_dropped)
+        finally:
+            localize.localize_step = step
+        assert bits_equal(timed["trace"], run["trace"])
+        assert timed_dropped == dropped
+        assert not eager_calls and graph.captures == captures
+        assert all(r == ["tolist", "cpu"] for r in reads), reads
+        over_ms = [t for t, d in zip(ms, dropped) if d > 0]
+        clean_ms = [t for t, d in zip(ms, dropped) if d == 0]
+        assert over_ms and clean_ms, dropped
+        out.update(process_scan_over_ms=over_ms,
+                   process_scan_clean_ms=clean_ms, eager_calls=0,
+                   host_reads_per_scan=2, new_captures=0, dropped=dropped)
+
+        # 3. raycast_checked_jit and render_ranges_jit on its grid, the
+        # cache extracted at the same capacity (it overflows)
+        loc = node.localizers[0]
+        grid, geom = node.grid, loc.geom
+        seg = node._segments_for(grid)
+        assert int(seg.n_dropped) > 0
+        tsd = grid.tsd.clone().requires_grad_(True)
+        leaf = dataclasses.replace(grid, tsd=tsd)
+        with torch.no_grad():
+            leaf_seg = rf.extract_segments(leaf)
+        w = torch.linspace(0.5, 1.5, geom.size, device=dev)
+        checked = []
+        for k in range(1, SCANS_OVERFLOW, 6):
+            pose = se2.make(*gts[0][k], device=dev)
+            got = rf.raycast_checked_jit(grid, geom, pose, segments=seg)
+            want = rf.raycast_checked(grid, geom, pose, segments=seg)
+            exact = raycast(grid, geom, pose)
+            checked.append(
+                results_equal(got, want)
+                and results_equal(got._replace(n_dropped=exact.n_dropped),
+                                  exact)
+                and int(got.n_dropped) > 0)
+            grads = []
+            for fn in (render_ranges_jit, render_ranges):
+                x = torch.tensor(gts[0][k], device=dev, requires_grad=True)
+                tsd.grad = None
+                r_, hit, res = fn(leaf, geom,
+                                  se2.make(x[0], x[1], x[2], device=dev),
+                                  segments=leaf_seg)
+                (w * r_).sum().backward()
+                grads.append((r_.detach(), hit, x.grad, tsd.grad,
+                              res.n_dropped))
+            checked.append(all(bits_equal(a, b) for a, b in zip(*grads))
+                           and int(grads[0][4]) > 0)
+        assert all(checked), checked
+        out["raycast_checked_jit_and_render_ranges_jit_equal"] = checked
+
+        # 4. the one-card multi-robot step
+        _, _, params, mgts, g, p = multi_robot_setup(
+            dev, lambda *a, **k: push_cuda(*a, **k))
+        # a capacity below this grid's segments (both robots' first scans)
+        rf.MAX_SEGMENTS = 128 * ((int(rf.extract_segments(g).count) - 1)
+                                 // 128)
+        out["max_segments_multi_robot"] = rf.MAX_SEGMENTS
+        steps = []
+        for k in range(1, 4):
+            data, mask = multi_robot_inputs(mgts, k, dev)
+            res = multi_robot_slam_step(g, p, data, mask, params, seed=k)
+            seg_k = rf.extract_segments(g)
+            steps.append({"rays_dropped": int(res.rays_dropped),
+                          "extraction_dropped": int(seg_k.n_dropped),
+                          "reg_error": res.reg_error.tolist()})
+            assert int(res.rays_dropped) >= p.shape[0] * int(
+                seg_k.n_dropped) > 0, steps
+            assert not bool(res.reg_error.any()), steps
+            g, p = res.grid, res.poses
+            for r, gt in enumerate(mgts):
+                assert math.hypot(float(p[r, 0, 2]) - gt[k][0],
+                                  float(p[r, 1, 2]) - gt[k][1]) < limit
+        out["multi_robot_steps"] = steps
+    finally:
+        rf.MAX_SEGMENTS = saved
+    med_over = statistics.median(out["process_scan_over_ms"])
+    med_clean = statistics.median(out["process_scan_clean_ms"])
+    print(f"overflow path (ICP, MAX_SEGMENTS {cap}): {out['checked_calls']}"
+          f" calls of localize_step_jit equal to the eager step in all "
+          f"nine fields, bit for bit, the {out['over']} that overflowed "
+          f"also to the exact march's step in every field but "
+          f"rays_dropped ({out['clean']} did not); one graph a robot for "
+          f"both (no capture after the priming); max |pose - truth| "
+          f"{json.dumps([round(e, 6) for e in out['errs']])} m [{label}]")
+    print(f"overflow path, the node as it is: process_scan median "
+          f"{med_over:.4f} ms on {len(out['process_scan_over_ms'])} "
+          f"overflowing scans, {med_clean:.4f} ms on "
+          f"{len(out['process_scan_clean_ms'])} that fit (host clock "
+          f"between synchronisations); host reads a scan 2 (the gate flags "
+          f"with the drop count, the pose); eager localize_step calls 0; "
+          f"new captures 0; rays_dropped a scan "
+          f"{json.dumps(out['dropped'])} [{label}]")
+    print(f"overflow path: raycast_checked_jit and render_ranges_jit "
+          f"(ranges, hits, pose and cell gradients) on its grid equal to "
+          f"the eager calls and the exact march in every bit "
+          f"{checked}; the one-card multi-robot step "
+          f"{json.dumps(out['multi_robot_steps'])} [{label}]")
+    return out
+
+
+ENTRY_CALLS = 5              # calls of each compiled entry point checked
+
+
+def results_equal(a, b) -> bool:
+    """Two results (tensors in any structure) equal in every bit."""
+    from ohm_tsd_slam_tpu_torch.utils.compiled import flatten
+
+    la, lb = [], []
+    return flatten(a, la) == flatten(b, lb) and all(
+        bits_equal(x, y) for x, y in zip(la, lb))
+
+
+def graph_mib(c) -> float:
+    """MiB that the caching allocator gives back when `c` (a Compiled)
+    drops its graphs: their buffers and pools."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    c.clear_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (before - torch.cuda.memory_reserved()) / 2**20
+
+
+def entry_points_path(dev, label: str, node, gts) -> tuple:
+    """The compiled entry points of this slice on the ICP path's grid
+    (robot 0's laser, ENTRY_CALLS poses of its trajectory):
+    raycast_checked_jit (with the node's segment cache), raycast_jit,
+    push_jit, push_tree_jit, occupancy_grid_jit and
+    grid_to_color_image_jit (each on the grid pushed from that pose), each
+    call equal in every bit to the eager call on the same inputs; their
+    captures and capture seconds; eager against compiled by CUDA events
+    and by the host clock; push_tree_jit's call against push_cuda's
+    wrapper (ROADMAP item 21: within 2x); render_ranges_jit's forward and
+    backward against eager autograd (ranges, hits, pose and cell
+    gradients in every bit; times of each); publish_map with the compiled
+    publication against the eager one (messages equal in every bit); last
+    the memory each entry point's graphs hold (given back when they are
+    dropped).  Returns the medians and, for the traced launches, the
+    calls."""
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.axis_aligned import (
+        occupancy_grid,
+        occupancy_grid_jit,
+    )
+    from ohm_tsd_slam_tpu_torch.grid.color import (
+        grid_to_color_image,
+        grid_to_color_image_jit,
+    )
+    from ohm_tsd_slam_tpu_torch.grid.push import (
+        push_jit,
+        push_tree,
+        push_tree_jit,
+    )
+    from ohm_tsd_slam_tpu_torch.grid.raycast import raycast, raycast_jit
+    from ohm_tsd_slam_tpu_torch.grid.render import (
+        render_ranges,
+        render_ranges_jit,
+    )
+    from ohm_tsd_slam_tpu_torch.ops.push_cuda import push_cuda
+    from ohm_tsd_slam_tpu_torch.slam import grid_pub
+
+    loc = node.localizers[0]
+    grid, geom = node.grid, loc.geom
+    seg = node._segments_for(grid)
+    ks = list(range(1, len(gts[0]), max(1, len(gts[0]) // ENTRY_CALLS)))
+    xyts = [gts[0][k] for k in ks[:ENTRY_CALLS]]
+    poses = [se2.make(*xyt, device=dev) for xyt in xyts]
+    scans = [node._preprocess(loc, scan_ranges(xyt, geom.max_range))
+             for xyt in xyts]
+    grids = [push_cuda(grid, geom, pose, *scan)
+             for pose, scan in zip(poses, scans)]
+    entries = {
+        "raycast_checked_jit": (
+            rf.raycast_checked_jit,
+            lambda i: rf.raycast_checked_jit(grid, geom, poses[i],
+                                             segments=seg),
+            lambda i: rf.raycast_checked(grid, geom, poses[i],
+                                         segments=seg)),
+        "raycast_jit": (
+            raycast_jit, lambda i: raycast_jit(grid, geom, poses[i]),
+            lambda i: raycast(grid, geom, poses[i])),
+        "push_jit": (
+            push_jit, lambda i: push_jit(grid, geom, poses[i], *scans[i]),
+            lambda i: push_cuda(grid, geom, poses[i], *scans[i])),
+        "push_tree_jit": (
+            push_tree_jit,
+            lambda i: push_tree_jit(grid, geom, poses[i], *scans[i]),
+            lambda i: push_tree(grid, geom, poses[i], *scans[i])),
+        "occupancy_grid_jit": (
+            occupancy_grid_jit, lambda i: occupancy_grid_jit(grids[i]),
+            lambda i: occupancy_grid(grids[i])),
+        "grid_to_color_image_jit": (
+            grid_to_color_image_jit,
+            lambda i: grid_to_color_image_jit(grids[i]),
+            lambda i: grid_to_color_image(grids[i])),
+    }
+    t, facts = {}, {}
+    for name, (fn, jit, eager) in entries.items():
+        c = fn.compiled
+        captures = c.captures
+        equal = [results_equal(jit(i), eager(i))
+                 for i in range(len(poses))]
+        assert all(equal), (name, equal)
+        facts[name] = {"calls_equal": len(equal),
+                       "captures": c.captures - captures,
+                       "capture_s": [round(s, 4) for s in c.capture_s]}
+        for how, timer in (("CUDA events", time_cuda),
+                           ("host clock", time_host)):
+            t[f"{name} compiled, {how}"] = timer(lambda: jit(0))
+            t[f"{name} eager, {how}"] = timer(lambda: eager(0))
+    # ROADMAP item 21's yardstick: push_tree's call within 2x the push
+    # wrapper's
+    t["push_cuda wrapper, host clock"] = time_host(
+        lambda: push_cuda(grid, geom, poses[0], *scans[0]))
+
+    # render_ranges_jit: forward, backward, gradients against eager
+    # the cell gradient needs a leaf field; its cache is extracted from it
+    # (a cache of another tensor would be stale: the exact march)
+    w = torch.linspace(0.5, 1.5, geom.size, device=dev)
+    tsd = grid.tsd.clone().requires_grad_(True)
+    leaf = dataclasses.replace(grid, tsd=tsd)
+    with torch.no_grad():
+        leaf_seg = rf.extract_segments(leaf)
+
+    def render(fn, i, backward=True):
+        x = torch.tensor(xyts[i], device=dev, requires_grad=True)
+        tsd.grad = None
+        r_, hit, _ = fn(leaf, geom, se2.make(x[0], x[1], x[2], device=dev),
+                        segments=leaf_seg)
+        loss = (w * r_).sum()
+        if not backward:
+            return loss
+        loss.backward()
+        return r_.detach(), hit, x.grad, tsd.grad
+
+    assert int(render_ranges_jit(leaf, geom, poses[0],
+                                 segments=leaf_seg)[2].n_dropped) == 0
+    forward, backward = render_ranges_jit.compiled
+    counts = (forward.captures, backward.captures)
+    equal = [all(bits_equal(a, b) for a, b in zip(
+        render(render_ranges_jit, i), render(render_ranges, i)))
+        for i in range(len(poses))]
+    assert all(equal), equal
+    facts["render_ranges_jit"] = {
+        "calls_equal": len(equal),
+        "captures": [forward.captures - counts[0],
+                     backward.captures - counts[1]],
+        "capture_s": [[round(s, 4) for s in c.capture_s]
+                      for c in (forward, backward)]}
+
+    def backward_ms(fn, n=N_TIMED, warmup=3):
+        ms = []
+        for j in range(n + warmup):
+            loss = render(fn, 0, backward=False)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss.backward()
+            end.record()
+            end.synchronize()
+            if j >= warmup:
+                ms.append(start.elapsed_time(end))
+        return ms
+
+    for how, fn in (("compiled", render_ranges_jit), ("eager", render_ranges)):
+        t[f"render_ranges_jit forward {how}, CUDA events"] = time_cuda(
+            lambda fn=fn: render(fn, 0, backward=False))
+        t[f"render_ranges_jit backward {how}, CUDA events"] = backward_ms(fn)
+
+    # publish_map, the compiled publication against the eager one
+    compiled_msgs = node.publish_map()
+    eager_names = {"occupancy_grid_jit": occupancy_grid,
+                   "grid_to_color_image_jit": grid_to_color_image}
+    saved = {k: getattr(grid_pub, k) for k in eager_names}
+    for k, f in eager_names.items():
+        setattr(grid_pub, k, f)
+    try:
+        eager_msgs = node.publish_map()
+        t["publish_map eager, host clock"] = time_host(node.publish_map)
+    finally:
+        for k, f in saved.items():
+            setattr(grid_pub, k, f)
+    t["publish_map compiled, host clock"] = time_host(node.publish_map)
+    for a, b in zip(compiled_msgs, eager_msgs):
+        assert np.array_equal(a.data, b.data), (a, b)
+
+    medians = report_times(t, label)
+    for name, f in facts.items():
+        print(f"compiled entry point {name}: {f['calls_equal']} calls equal "
+              f"to the eager call in every bit; captures {f['captures']} "
+              f"here, every capture's seconds {f['capture_s']} [{label}]")
+    ratio = (medians["push_tree_jit compiled, host clock"]
+             / medians["push_cuda wrapper, host clock"])
+    print(f"push_tree_jit call {medians['push_tree_jit compiled, host clock']:.4f}"
+          f" ms against push_cuda's wrapper "
+          f"{medians['push_cuda wrapper, host clock']:.4f} ms (host clock): "
+          f"{ratio:.2f}x, ROADMAP item 21's 2x "
+          f"{'met' if ratio <= 2.0 else 'not met'} [{label}]")
+    print("publish_map: the messages of the compiled publication equal the "
+          "eager one's in every bit")
+    memory = {name: graph_mib(fn.compiled)
+              for name, (fn, _, _) in entries.items()}
+    memory["render_ranges_jit"] = sum(graph_mib(c)
+                                      for c in render_ranges_jit.compiled)
+    memory["raycast_checked_jit (overflow path's graphs too)"] = memory.pop(
+        "raycast_checked_jit")
+    print(f"device memory the entry points' graphs held (MiB given back "
+          f"when they are dropped): "
+          f"{json.dumps({k: round(v, 1) for k, v in memory.items()})} "
+          f"[{label}]")
+    calls = {"raycast_checked_jit": lambda i: entries[
+        "raycast_checked_jit"][1](i),
+        "push_jit": entries["push_jit"][1],
+        "push_tree_jit": entries["push_tree_jit"][1],
+        "render_ranges_jit": lambda i: render(render_ranges_jit, i)}
+    return medians, {"facts": facts, "memory": memory, "calls": calls,
+                     "n": len(poses), "ratio_push_tree": ratio}
+
+
+def new_path_launches(dev, label: str, ref: dict, overflow: dict,
+                      entry: dict) -> dict:
+    """The overflow path's node and the entry points once more, under
+    torch.profiler (run after every time is taken: the profiler's hooks
+    stay), their launch counts set to 0 just before: each kernel's device
+    launches by name.  The overflow path (MAX_SEGMENTS as in
+    overflow_path): C, D and the rounds once a call of the step (its scans
+    and each localizer's priming replay, the fast caster runs on every
+    scan, the exact march inside the conditional node on those that
+    overflow) and once more a new capture's warm-up.  The entry points:
+    ENTRY_CALLS calls each of raycast_checked_jit (cached segments: C, D
+    and the rounds once a call), push_jit and push_tree_jit (the push once
+    a call) and render_ranges_jit's forward and backward (C, D and the
+    rounds once a forward), plus a warm-up a capture (entry_points_path
+    dropped their graphs).  Returns each path's counts, or None where the
+    profiler shows no device activity."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.push import push_jit, push_tree_jit
+    from ohm_tsd_slam_tpu_torch.grid.render import render_ranges_jit
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode, localize
+
+    cfg = from_flat_params(DOUBLE_LASER)
+    gts = [gt[:SCANS_OVERFLOW] for gt in ref["gts"]]
+    scans = [sc[:SCANS_OVERFLOW] for sc in ref["scans"]]
+    out = {}
+    step = localize.localize_step_jit.compiled
+    saved = rf.MAX_SEGMENTS
+    rf.MAX_SEGMENTS = overflow["max_segments"]
+    try:
+        node = SlamNode(cfg, dtype=torch.float32, device=dev)
+        captures = step.captures
+        reset_counts()
+        found, run = traced_launches(
+            lambda: drive(node, cfg, gts, scans, dropped=[]))
+    finally:
+        rf.MAX_SEGMENTS = saved
+    calls = run["n_scans"] + len(cfg.robots) + step.captures - captures
+    if found is not None:
+        for k in ("segment_min", "window_replay", "window_rounds"):
+            assert found[k] == calls, (k, found, calls)
+    out["overflow path"] = found
+    n = entry["n"]
+    graphs = {"raycast_checked_jit": rf.raycast_checked_jit.compiled,
+              "push_jit": push_jit.compiled,
+              "push_tree_jit": push_tree_jit.compiled,
+              "render_ranges_forward": render_ranges_jit.compiled[0]}
+    captures = {k: g.captures for k, g in graphs.items()}
+    reset_counts()
+
+    def entries():
+        for fn in entry["calls"].values():
+            for i in range(n):
+                fn(i)
+
+    found, _ = traced_launches(entries)
+    new = {k: g.captures - captures[k] for k, g in graphs.items()}
+    if found is not None:
+        renders = (2 * n + new["raycast_checked_jit"]
+                   + new["render_ranges_forward"])
+        for k in ("segment_min", "window_replay", "window_rounds"):
+            assert found[k] == renders, (k, found, renders)
+        assert found["push"] == (2 * n + new["push_jit"]
+                                 + new["push_tree_jit"]), found
+    out["entry points"] = found
+    for name, f in out.items():
+        print(f"compiled device launches {name}: " + (
+            "not measured (the profiler shows no device activity)"
+            if f is None else json.dumps(f)) + f" from the trace [{label}]")
+    return out
+
 
 
 def gn_path(dev, label: str, push_check):
@@ -2034,19 +2700,22 @@ def stage_times(node, label: str) -> dict:
         return localize_step(grid, pose, loc.last_pose, data, mask, p,
                              segments=seg)
 
-    # extraction, localize_step (fast caster + ICP + gates) and the push
-    # wrapper queue their work without reading anything back: any host
-    # sync raises here
+    # extraction and the push wrapper queue their work without reading
+    # anything back: any host sync raises here; the eager localize_step
+    # (fast caster + ICP + gates) reads back one value, the guard's drop
+    # count (its graph reads nothing: compiled_times)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         rf.extract_segments(grid)
-        localize()
         push_cuda(grid, geom, pose, data, mask)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    print("sync check: extract_segments, localize_step (fast caster) and "
-          "push_cuda ran with no host sync")
+    syncs = host_syncs(localize)
+    assert syncs == 1, syncs
+    print("sync check: extract_segments and push_cuda ran with no host "
+          "sync; localize_step (fast caster) with one, the overflow "
+          "guard's read of the drop count")
 
     # device memory a call allocates beyond what the node already holds
     for name, fn in (
@@ -2314,18 +2983,21 @@ def ransac_times(node, narrow, label: str) -> tuple:
             node._draws(0, 1000), *clouds, p, beam),
     }
 
-    # no ported mode reads the device inside localize_step; the general
-    # extraction queues its work like the fused one
+    # no ported mode reads the device inside localize_step but for the
+    # guard's drop count; the general extraction queues its work like the
+    # fused one
+    for m in modes:
+        syncs = host_syncs(lambda m=m: localize(m))
+        assert syncs == 1, (m, syncs)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for m in modes:
-            localize(m)
         rf.extract_segments(narrow.grid)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    print("sync check: localize_step in the modes TSD, EXP and PDF and the "
-          "general extract_segments ran with no host sync")
+    print("sync check: localize_step in the modes TSD, EXP and PDF ran "
+          "with one host sync each (the guard's drop count), the general "
+          "extract_segments with none")
 
     for name, fn in (*matchers.items(), ("localize_step (TSD)", localize)):
         peak, held = peak_mib(fn)
@@ -2440,16 +3112,12 @@ def slice_times(gn, amcl, main, twin_fns: dict, label: str) -> tuple:
                              aloc.params, generator=amcl._draws(0, 1000),
                              segments=aseg)
 
-    # neither mode reads the device inside localize_step
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        gn_step()
-        amcl_step()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    print("sync check: localize_step in the modes GN and AMCL ran with no "
-          "host sync")
+    # GN renders nothing and reads nothing back; AMCL reads the guard's
+    # drop count
+    gn_syncs, amcl_syncs = host_syncs(gn_step), host_syncs(amcl_step)
+    assert (gn_syncs, amcl_syncs) == (0, 1), (gn_syncs, amcl_syncs)
+    print("sync check: localize_step in mode GN ran with no host sync, in "
+          "mode AMCL with one (the guard's drop count)")
     for name, fn in (("localize_step (GN)", gn_step),
                      ("localize_step (AMCL)", amcl_step)):
         peak, held = peak_mib(fn)
@@ -2762,6 +3430,7 @@ def multi_robot_path(dev, label: str, push_check):
 MESH_WORLDS = (("nccl", 1, "auto"), ("gloo", 2, (2, 1)),
                ("gloo", 4, "auto"))
 MESH_TIMED = 10              # timed sharded renders and steps a rank
+MESH_COMPILED = 5            # NCCL: replays of the step against the eager
 MESH_RANK_TIMEOUT = 300      # s: a world's ranks, start to finish
 SHARD_COORD_TOL = 1e-4       # m: sharded render against the one-card caster
 SHARD_MASK_FLIPS = 0.005     # share of beams whose hit may differ
@@ -2932,6 +3601,23 @@ def report_mesh_rank(name: str, res: dict, label: str) -> None:
           f"{device(res['one_card_device'])}; with cached segments "
           f"{spread(res['one_card_cached_ms'])}, device "
           f"{device(res['one_card_cached_device'])} [{label}]")
+    if res["compiled"]:
+        print(f"{tag}: make_sharded_step's step compiled (NCCL): "
+              f"{len(res['compiled_equal'])} replays equal to the eager "
+              f"step in every bit {res['compiled_equal']}, captures "
+              f"{res['compiled_captures']} in "
+              f"{[round(t, 3) for t in res['compiled_capture_s']]} s, device "
+              f"launches of one replay "
+              f"{json.dumps(res['compiled_replay_launches'])}; step "
+              f"compiled {spread(res['step_ms'])} against eager "
+              f"{spread(res['step_eager_ms'])} by CUDA events, host clock "
+              f"{spread(res['step_host_ms'])} against "
+              f"{spread(res['step_eager_host_ms'])} [{label}]")
+    else:
+        print(f"{tag}: make_sharded_step's step runs eagerly on gloo (its "
+              f"collectives run on the host and cannot be captured; the "
+              f"tensors stay on the card): step {spread(res['step_ms'])} by "
+              f"CUDA events [{label}]")
     print(f"{tag}: collectives a render {res['render'][0]['collectives']} "
           f"({res['render'][0]['collective_bytes']} B), "
           f"{res['render_collective_ms']:.4f} ms with the card synchronised "
@@ -3094,14 +3780,20 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
     best_push = sharded.best_push
     sharded.best_push = lambda grid: push_check
     step, place = make_sharded_step(mesh, params)
+    # the checked steps run eagerly (their launches pass the wrappers that
+    # count them and the checks that hold them); the step as
+    # make_sharded_step returns it, a graph on NCCL, is held against them
+    # after
+    eager = functools.partial(multi_robot_slam_step, params=params,
+                              mesh=mesh)
     g, p, _, _ = place(grid0, poses0, data1, mask1)
     errs = [[] for _ in range(R)]
     reset_counts()
     with CollectiveCount() as clock:
         for k in range(1, STEPS_MULTI + 1):
             data, mask = multi_robot_inputs(gts, k, dev)
-            res = step(g, p, robot_sharding(mesh, data),
-                       robot_sharding(mesh, mask), seed=k)
+            res = eager(g, p, robot_sharding(mesh, data),
+                        robot_sharding(mesh, mask), seed=k)
             assert int(res.rays_dropped) == 0, k
             assert not bool(res.reg_error.any()), (k, res.reg_error)
             if k == 1:
@@ -3140,17 +3832,47 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
                 geom.angular_res))
         mstep, _ = make_sharded_step(mesh, mparams)
         with CollectiveCount() as clock:
-            res = mstep(g, p, d, m, seed=7)
+            res = multi_robot_slam_step(g, p, d, m, mparams, seed=7,
+                                        mesh=mesh)
         moved = float((robot_sharding(mesh, res.poses) - p)[:, :2, 2]
                       .abs().max())
         out["modes"][name] = {"reg_error": res.reg_error.tolist(),
                               "moved": moved, "collectives": clock.calls}
+        if mstep.compiled is not None:
+            # the step's graph on NCCL (the push kernel unchecked inside
+            # it: the check reads the card), against the eager step
+            sharded.best_push = best_push
+            try:
+                got = mstep(g, p, d, m, seed=7)
+            finally:
+                sharded.best_push = lambda grid: push_check
+            out["modes"][name]["compiled_equal"] = step_results_equal(
+                got, res)
+            assert out["modes"][name]["compiled_equal"], name
         assert not bool(res.reg_error.any()), (name, res.reg_error)
         assert bool(torch.isfinite(res.poses).all()), name
         assert moved < limit, (name, moved)
 
     phase("TSD and GN steps")
     sharded.best_push = best_push       # the timed steps run unchecked
+    # the step as make_sharded_step returns it: a graph on NCCL, each
+    # replay against the eager step in every bit; eager on gloo
+    out["compiled"] = step.compiled is not None
+    if step.compiled is not None:
+        gc_, pc, _, _ = place(grid0, poses0, data1, mask1)
+        equal = []
+        for k in range(1, MESH_COMPILED + 1):
+            data, mask = multi_robot_inputs(gts, k, dev)
+            dk, mk = robot_sharding(mesh, data), robot_sharding(mesh, mask)
+            got = step(gc_, pc, dk, mk, seed=k)
+            equal.append(step_results_equal(got, eager(gc_, pc, dk, mk,
+                                                       seed=k)))
+            gc_, pc = got.grid, robot_sharding(mesh, got.poses)
+        out["compiled_equal"] = equal
+        out["compiled_captures"] = step.compiled.captures
+        out["compiled_capture_s"] = step.compiled.capture_s
+        assert all(equal) and step.compiled.captures == 1, out
+    phase("compiled steps")
     # times: the render (host clock between synchronisations), its
     # collectives and the step's, then the render's device kernels
     pose = se2.make(*gts[0][STEPS_MULTI], device=dev)
@@ -3176,8 +3898,18 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
     out["step_ms"] = time_cuda(
         lambda: step(g, p, d, m, seed=STEPS_MULTI + 1), n=MESH_TIMED,
         warmup=1)
+    if step.compiled is not None:
+        # the compiled step against the eager one, by both clocks
+        out["step_eager_ms"] = time_cuda(
+            lambda: eager(g, p, d, m, seed=STEPS_MULTI + 1), n=MESH_TIMED,
+            warmup=1)
+        for key, fn in (("step_host_ms", step), ("step_eager_host_ms",
+                                                 eager)):
+            out[key] = time_host(
+                lambda fn=fn: fn(g, p, d, m, seed=STEPS_MULTI + 1),
+                n=MESH_TIMED, warmup=1)
     with CollectiveCount(timed=True) as clock:
-        step(g, p, d, m, seed=STEPS_MULTI + 1)
+        eager(g, p, d, m, seed=STEPS_MULTI + 1)
     out["step_collective_ms"] = clock.ms
     # the one-card caster on the same (whole) grid state and pose in this
     # world: extraction inline (the sharded render's work) and cached
@@ -3205,6 +3937,11 @@ def mesh_rank(backend: str, shape_arg: str, out_dir: str) -> int:
         out[key] = wall
     phase("timed")
     found = device_kernels(render, one_card, one_card_cached)
+    if step.compiled is not None:
+        # a replay's device launches by kernel name (after the times: the
+        # profiler's hooks stay)
+        out["compiled_replay_launches"] = traced_launches(
+            lambda: step(gc_, pc, dk, mk, seed=0))[0]
     phase("profiled")
     out["render_device"], out["one_card_device"], \
         out["one_card_cached_device"] = (
@@ -3299,6 +4036,14 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     a, b = a.contiguous().cpu(), b.contiguous().cpu()
     return a.shape == b.shape and a.dtype == b.dtype and \
         a.numpy().tobytes() == b.numpy().tobytes()
+
+
+def step_results_equal(a, b) -> bool:
+    """Two SlamStepResults equal in every bit."""
+    return all(bits_equal(getattr(a.grid, f), getattr(b.grid, f))
+               for f in ("tsd", "weight", "tile_init", "tile_initw")) and all(
+        bits_equal(getattr(a, f), getattr(b, f))
+        for f in ("poses", "reg_error", "pose_grad", "rms", "rays_dropped"))
 
 
 def depth_cloud(seed: int):
@@ -3865,6 +4610,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
+    t_lap = [t_all]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
     # 1. device
     label = card_label()
     print(f"nvidia-smi name, power.limit: {label}")
@@ -3872,7 +4623,10 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # 2. build (from the sources in this checkout, never a cached library)
-    names = ["push"] + [name for name, _, _ in CASTER if name not in SOURCE]
+    # the kernels, and the conditional nodes' setter of utils/compiled.py
+    # (glue: no TPU kernel)
+    names = (["push"] + [name for name, _, _ in CASTER if name not in SOURCE]
+             + ["graph_cond"])
     for name in names:
         if os.path.exists(_build.lib_path(name)):
             os.remove(_build.lib_path(name))
@@ -3928,12 +4682,14 @@ def main() -> int:
               f"{json.dumps(stats)}")
     print("kernel check compact_channels main-path grid: "
           f"{json.dumps(main_grid_compact_check(node, caster_stats))}")
+    lap("1-3 build and kernel checks, 4a main path")
 
     # 4b. the general-extraction path; 4c. TSD, then EXP and PDF
     narrow, narrow_run = narrow_path(dev, label, caster_stats, push_check)
     narrow_launches = narrow_run["launches"]
     tsd_node, tsd_run = ransac_paths(dev, label, push_check)
     tsd_launches = tsd_run["launches"]
+    lap("4b, 4c eager paths")
     # 4c'. the ICP, general-extraction and TSD paths again on the compiled
     # step, each scan's result held against the eager step's
     icp_run["launches"] = launches
@@ -3943,6 +4699,11 @@ def main() -> int:
     compiled_path(dev, label, push_check, compiled_paths)
     # ... and the threaded runtime on it, capturing while its threads run
     threaded_path(dev, label, icp_run)
+    lap("4c' compiled paths")
+    # ... and the ICP path on it with the fast caster's capacity forced
+    # below the map's segments: the guard inside the graph
+    overflow = overflow_path(dev, label, icp_run)
+    lap("4c'' overflow path")
     # 4d. GN, AMCL with the kidnap, the odometry rescue; the render on the
     # ICP path's grid; TwinPoint and multi-init on the TSD path's scene
     gn_node, _ = gn_path(dev, label, push_check)
@@ -3950,6 +4711,7 @@ def main() -> int:
     odom_path(dev, label, push_check)
     render_check(node, label)
     twin_fns = twin_multi_check(tsd_node, label)
+    lap("4d")
     # 4e. the pose batch (P = 128) on the ICP path's grid; the multi-robot
     # step on the double laser's settings; the command line
     batch = batch_check(node, label, caster_stats)
@@ -3967,9 +4729,13 @@ def main() -> int:
         print(f"kernel check A and B on a row block, {name}: "
               f"{json.dumps(stats)}")
     cli = cli_path(label)
+    lap("4e, 4f")
     # 4g. push_tree through the gated push kernel, the 3D filters, the
     # trimmed filter and surface_points
     inventory = inventory_path(node, label, push_check)
+    # 4h. the compiled entry points of this slice against their eager calls
+    _, entry = entry_points_path(dev, label, node, icp_run["gts"])
+    lap("4g, 4h")
     print(f"kernel check caster, every call: {json.dumps(caster_stats)}")
     # every push of the kernel check and of the five paths: PushCheck
     # raises on the first tile that disagrees, so the counts below are 0
@@ -3995,6 +4761,7 @@ def main() -> int:
     more, compiled_fns = compiled_times(dev, label)
     times.update(more)
     steps.update(compiled_fns)
+    lap("5 times")
     one_step = times["multi_robot_slam_step (2 robots, ICP; CUDA events "
                      "around the step, which reads the drop count once)"]
     for world, ranks in mesh.items():
@@ -4017,6 +4784,8 @@ def main() -> int:
     device_kernel_counts(node, label, steps)
     icp_kernel_counts(icp_fns, label)
     compiled = compiled_device_launches(dev, label, compiled_paths)
+    new_paths = new_path_launches(dev, label, icp_run, overflow, entry)
+    lap("traced launches")
 
     def entry(name, fn, replaces, key, launches_, err, bound, library=None,
               **extra):
@@ -4034,6 +4803,11 @@ def main() -> int:
         # included
         return {path: "not measured" if found is None else found[name]
                 for path, found in compiled.items()}
+
+    def new_launches(name):
+        # the overflow path's and the entry points' device launches
+        return {path: "not measured" if found is None else found[name]
+                for path, found in new_paths.items()}
 
     def mesh_launches(name):
         # per world, each rank's launches in the mesh path's ICP steps
@@ -4057,6 +4831,7 @@ def main() -> int:
         launches_tsd_path=tsd_launches["push"],
         launches_mesh_path=mesh_launches("push"),
         launches_compiled_path=compiled_launches("push"),
+        launches_overflow_and_entry_points=new_launches("push"),
         launches_tree_path=inventory["tree_path"]["launches"],
         max_abs_err_gated=inventory["tree_path"]["max_abs_err"],
         device_ms_gated=inventory["times"][
@@ -4077,7 +4852,8 @@ def main() -> int:
         key = next(k for k in times if k.startswith(f"{tag} {name} kernel"))
         extra = {"launches_tsd_path": tsd_launches[name],
                  "launches_mesh_path": mesh_launches(name),
-                 "launches_compiled_path": compiled_launches(name)}
+                 "launches_compiled_path": compiled_launches(name),
+                 "launches_overflow_and_entry_points": new_launches(name)}
         library = None
         count = launches[name]
         # the first time of that name is the main path's call (for C the
@@ -4122,6 +4898,7 @@ def main() -> int:
                 "launches_tsd_path": tsd_launches[name],
                 "launches_mesh_path": mesh_launches(name),
                 "launches_compiled_path": compiled_launches(name),
+                "launches_overflow_and_entry_points": new_launches(name),
                 "kernel_ms": times[
                     "E compact_channels launch alone (n=16384: "
                     "compact_channels_f32 on held buffers)"],

@@ -10,9 +10,18 @@ from ohm_tsd_slam_tpu_torch.grid.interpolate import (
     interpolate_normal,
 )
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
-from ohm_tsd_slam_tpu_torch.grid.push import push, push_tree
-from ohm_tsd_slam_tpu_torch.grid.raycast import RaycastResult, raycast
-from ohm_tsd_slam_tpu_torch.grid.render import render_ranges
+from ohm_tsd_slam_tpu_torch.grid.push import (
+    push,
+    push_jit,
+    push_tree,
+    push_tree_jit,
+)
+from ohm_tsd_slam_tpu_torch.grid.raycast import (
+    RaycastResult,
+    raycast,
+    raycast_jit,
+)
+from ohm_tsd_slam_tpu_torch.grid.render import render_ranges, render_ranges_jit
 # as in the JAX package, the raycast_fast function is not bound here: it
 # would shadow the grid.raycast_fast submodule
 from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
@@ -36,8 +45,12 @@ __all__ = [
     "interpolate_normal",
     "best_push",
     "push",
+    "push_jit",
     "push_tree",
+    "push_tree_jit",
     "render_ranges",
+    "render_ranges_jit",
     "RaycastResult",
     "raycast",
+    "raycast_jit",
 ]

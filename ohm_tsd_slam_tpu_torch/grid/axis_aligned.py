@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid, expand_tiles
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 
 class OccupancyResult(NamedTuple):
@@ -149,6 +150,23 @@ def occupancy_grid(grid: TsdGrid, use_inflation: bool = False,
     occ = torch.where(occupied, 100, occ).to(torch.int8)
     n = h_own.sum() + h_dup.sum() + v_own.sum() + v_dup.sum()
     return OccupancyResult(occ, n)
+
+
+_occupancy_graph = compiled(occupancy_grid,
+                            static_argnames=("use_inflation",
+                                             "inflation_factor"))
+
+
+def occupancy_grid_jit(grid: TsdGrid, use_inflation: bool = False,
+                       inflation_factor: int = 2) -> OccupancyResult:
+    """occupancy_grid, compiled (ohm_tsd_slam_tpu/grid/axis_aligned.py::
+    occupancy_grid_jit, `use_inflation` and `inflation_factor` static):
+    one graph a key on the card, the eager function on the CPU; the
+    publisher (slam/grid_pub.py) calls it."""
+    return _occupancy_graph(grid, use_inflation, inflation_factor)
+
+
+occupancy_grid_jit.compiled = _occupancy_graph
 
 
 def surface_points(grid: TsdGrid) -> Tuple[torch.Tensor, torch.Tensor]:

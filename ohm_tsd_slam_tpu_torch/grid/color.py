@@ -13,6 +13,7 @@ import math
 import torch
 
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 
 def grid_to_color_image(grid: TsdGrid, width: int = None,
@@ -63,3 +64,18 @@ def grid_to_color_image(grid: TsdGrid, width: int = None,
     g = torch.where(pos, 255, torch.where(neg, 0, other))
     b = torch.where(pos, ramp_pos, torch.where(neg, 0, other))
     return torch.stack([r, g, b], dim=-1).to(torch.uint8)
+
+
+_color_graph = compiled(grid_to_color_image,
+                        static_argnames=("width", "height"))
+
+
+def grid_to_color_image_jit(grid: TsdGrid, width: int = None,
+                            height: int = None) -> torch.Tensor:
+    """grid_to_color_image, compiled (ohm_tsd_slam_tpu/grid/color.py::
+    grid_to_color_image_jit, `width` and `height` static): one graph a key
+    on the card, the eager function on the CPU; the publisher calls it."""
+    return _color_graph(grid, width, height)
+
+
+grid_to_color_image_jit.compiled = _color_graph

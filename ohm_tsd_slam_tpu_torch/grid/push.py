@@ -14,7 +14,8 @@ over the whole grid as dense [H, W] tensors:
 This is the reference for the CUDA kernel (ops/push_cuda.py), which
 takes step 1's decisions per tile itself (tile_cull is their twin) and
 computes the per-cell steps 2-4 only for the tiles it selects.  The main
-path runs this version only for a grid on the CPU.
+path runs this version only for a grid on the CPU.  `push_jit` and
+`push_tree_jit` are the kernel route compiled (a CUDA graph a key).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ohm_tsd_slam_tpu_torch.grid.state import (
     expand_tiles,
 )
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D, back_project
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 
 def _tile_rows(grid: TsdGrid, dtype, ty0: int) -> torch.Tensor:
@@ -300,3 +302,48 @@ def push_tree(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
     return dispatch.best_push(grid)(grid, geom, pose, data, mask,
                                     tile_gate=branch_gate(grid, geom, pose))
+
+
+# --------------------------------------------------------------------------
+# compiled entry points (utils/compiled.py: a CUDA graph a key on the card,
+# the eager functions on the CPU)
+# --------------------------------------------------------------------------
+
+def _kernel_route(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+                  data: torch.Tensor, mask: torch.Tensor,
+                  tile_gate: Optional[torch.Tensor], ty0: int) -> TsdGrid:
+    from ohm_tsd_slam_tpu_torch.grid import dispatch
+
+    return dispatch.best_push(grid)(grid, geom, pose, data, mask,
+                                    tile_gate=tile_gate, ty0=ty0)
+
+
+_push_graph = compiled(_kernel_route, static_argnames=("geom", "ty0"))
+
+
+def push_jit(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+             data: torch.Tensor, mask: torch.Tensor,
+             tile_gate: Optional[torch.Tensor] = None,
+             ty0: int = 0) -> TsdGrid:
+    """push, compiled (ohm_tsd_slam_tpu/grid/push.py::push_jit, `geom`
+    static): on the card one graph a key of grid/dispatch.py::best_push's
+    route, the push kernel (ops/push_cuda.py); the plain push never runs
+    there.  On the CPU the plain push."""
+    return _push_graph(grid, geom, pose, data, mask, tile_gate, ty0)
+
+
+push_jit.compiled = _push_graph
+
+_tree_graph = compiled(push_tree, static_argnames=("geom",))
+
+
+def push_tree_jit(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+                  data: torch.Tensor, mask: torch.Tensor) -> TsdGrid:
+    """push_tree, compiled (ohm_tsd_slam_tpu/grid/push.py::push_tree_jit,
+    `geom` static): on the card one graph a key of branch_gate's vector
+    tests and the push kernel with that tile gate, so the gate's torch
+    glue costs one launch a call."""
+    return _tree_graph(grid, geom, pose, data, mask)
+
+
+push_tree_jit.compiled = _tree_graph

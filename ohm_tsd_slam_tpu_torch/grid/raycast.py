@@ -36,6 +36,7 @@ from ohm_tsd_slam_tpu_torch.grid.interpolate import (
 )
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 
 class RaycastResult(NamedTuple):
@@ -207,3 +208,17 @@ def sensor_frame(pose: torch.Tensor, coords_w: torch.Tensor,
     normals_s = torch.where(mask[..., None], normals_s, 0.0)
     ranges = torch.sqrt(torch.sum(coords_s * coords_s, dim=-1))
     return RaycastResult(coords_s, normals_s, mask, ranges, n_dropped)
+
+
+_raycast_graph = compiled(raycast, static_argnames=("geom",))
+
+
+def raycast_jit(grid: TsdGrid, geom: SensorPolar2D,
+                pose: torch.Tensor) -> RaycastResult:
+    """raycast, compiled (ohm_tsd_slam_tpu/grid/raycast.py::raycast_jit,
+    `geom` static): on the card the exact march's ops as one graph a key,
+    on the CPU the eager march."""
+    return _raycast_graph(grid, geom, pose)
+
+
+raycast_jit.compiled = _raycast_graph

@@ -35,10 +35,10 @@ in float32 or float64, takes the same path on the twins.
 
 A SegmentCache is tied to the tensor it was extracted from: a cache whose
 `tsd` is not the grid's, or whose version differs, is stale and counts as a
-full overflow (every beam in n_dropped), so `raycast_checked` and the node
-fall back to the exact march.  That check is exact and host-side; the JAX
-package's order-independent checksum accepts a grid shifted by whole cells
-(ROADMAP.md queue 3).
+full overflow (every beam in n_dropped), so `raycast_checked` (and with
+it the step) falls back to the exact march.  That check is exact and
+host-side; the JAX package's order-independent checksum accepts a grid
+shifted by whole cells (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ from ohm_tsd_slam_tpu_torch.grid.raycast import (
 )
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
-from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled, when
 
 # max isocontour segments kept; segments beyond this are dropped AND
 # counted (n_dropped; a 1024^2 map of corridors has ~10-30k segments)
@@ -710,14 +710,17 @@ def raycast_fast_batch(grid: TsdGrid, geom: SensorPolar2D,
 def raycast_checked(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
                     segments: Optional[SegmentCache] = None
                     ) -> RaycastResult:
-    """Guarded isocontour raycast: when anything overflowed (segments,
-    round capacity, stale cache) the exact march renders the scan instead.
-    Reads n_dropped back to the host once; the node avoids that read by
-    taking rays_dropped with its gate flags (slam/node.py)."""
+    """Guarded isocontour raycast (ohm_tsd_slam_tpu/grid/raycast_fast.py::
+    raycast_checked): when anything overflowed (segments, round capacity,
+    stale cache) the exact march renders the scan instead, and n_dropped
+    keeps the fast caster's count.  The branch is utils/compiled.py::when:
+    eagerly one read of n_dropped, in a graph (raycast_checked_jit,
+    localize_step_jit) a conditional node that reads nothing back."""
     fast = raycast_fast(grid, geom, pose, segments=segments)
-    if int(fast.n_dropped) > 0:
-        return raycast(grid, geom, pose)._replace(n_dropped=fast.n_dropped)
-    return fast
+    return when(fast.n_dropped > 0,
+                lambda: raycast(grid, geom, pose)._replace(
+                    n_dropped=fast.n_dropped),
+                fast)
 
 
 # --------------------------------------------------------------------------
@@ -792,3 +795,28 @@ def raycast_fast_jit(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
 
 raycast_fast_jit.compiled = _render_graph
+
+
+def _checked(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+             segments: Optional[SegmentCache], stale: bool) -> RaycastResult:
+    return raycast_checked(grid, geom, pose, bind_cache(segments, grid, stale))
+
+
+_checked_graph = compiled(_checked, static_argnames=("geom", "stale"))
+
+
+def raycast_checked_jit(grid: TsdGrid, geom: SensorPolar2D,
+                        pose: torch.Tensor,
+                        segments: Optional[SegmentCache] = None
+                        ) -> RaycastResult:
+    """raycast_checked, compiled (ohm_tsd_slam_tpu/grid/raycast_fast.py::
+    raycast_checked_jit, `geom` static): one graph of kernels C, D and
+    D's rounds (A and B, or E, too without a cache) and the exact march in
+    a conditional node on the fast caster's drop count, so one graph
+    serves the scans that overflow and those that do not.  Staleness is
+    decided here, as in raycast_fast_jit."""
+    stale = segments is not None and is_stale(segments, grid)
+    return _checked_graph(grid, geom, pose, strip_cache(segments), stale)
+
+
+raycast_checked_jit.compiled = _checked_graph

@@ -44,10 +44,14 @@ from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid.raycast import RaycastResult, raycast
 from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
     SegmentCache,
+    bind_cache,
+    is_stale,
     raycast_checked,
+    strip_cache,
 )
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
 
 
 def _bilinear_raw(tsd: torch.Tensor, coords: torch.Tensor, cell_size: float,
@@ -130,40 +134,71 @@ def _newton_refine(geom: SensorPolar2D, cell_size: float, tsd: torch.Tensor,
     return r
 
 
+def _ift_backward(geom: SensorPolar2D, cell_size: float, tsd: torch.Tensor,
+                  pose: torch.Tensor, r0: torch.Tensor, hit_f: torch.Tensor,
+                  g: torch.Tensor, need_tsd: bool, need_pose: bool):
+    """The IFT cotangents (dtsd, dpose) of the ranges' cotangent g, each
+    None where not needed."""
+    with torch.no_grad():
+        _, f_r, ok = _phi_at(geom, cell_size, tsd, pose, r0)
+        # at a +/- crossing the field falls along the ray (dF/dr < 0);
+        # grazing hits, where it vanishes, are left out
+        active = (hit_f > 0.5) & ok & (f_r.abs() > 1e-6)
+        u = torch.where(active, -g / torch.where(active, f_r, 1.0), 0.0)
+    # dF/d(tsd, pose) at fixed r: the tsd cotangent is a scatter-add into
+    # the four-cell stencils of the hit points
+    with torch.enable_grad():
+        tsd_ = tsd.detach().requires_grad_(need_tsd)
+        pose_ = pose.detach().requires_grad_(need_pose)
+        grads = iter(torch.autograd.grad(
+            _phi_at(geom, cell_size, tsd_, pose_, r0)[0],
+            [t for t in (tsd_, pose_) if t.requires_grad],
+            grad_outputs=u))
+    dtsd = next(grads) if need_tsd else None
+    dpose = next(grads) if need_pose else None
+    return dtsd, dpose
+
+
 class _IftRanges(torch.autograd.Function):
     """Identity on the marched ranges r0, with the IFT backward: the
     gradient reaches `tsd` and `pose`; r0 and hit_f are constants of the
-    march."""
+    march.  `backward_fn` computes it: `_ift_backward`, or its graph
+    (render_ranges_jit)."""
 
     @staticmethod
-    def forward(ctx, geom, cell_size, tsd, pose, r0, hit_f):
+    def forward(ctx, geom, cell_size, tsd, pose, r0, hit_f, backward_fn):
         ctx.geom, ctx.cell_size = geom, cell_size
+        ctx.backward_fn = backward_fn
         ctx.save_for_backward(tsd, pose, r0, hit_f)
         return r0.clone()
 
     @staticmethod
     def backward(ctx, g):
         tsd, pose, r0, hit_f = ctx.saved_tensors
-        geom, cell_size = ctx.geom, ctx.cell_size
         need_tsd, need_pose = ctx.needs_input_grad[2:4]
-        with torch.no_grad():
-            _, f_r, ok = _phi_at(geom, cell_size, tsd, pose, r0)
-            # at a +/- crossing the field falls along the ray (dF/dr < 0);
-            # grazing hits, where it vanishes, are left out
-            active = (hit_f > 0.5) & ok & (f_r.abs() > 1e-6)
-            u = torch.where(active, -g / torch.where(active, f_r, 1.0), 0.0)
-        # dF/d(tsd, pose) at fixed r: the tsd cotangent is a scatter-add
-        # into the four-cell stencils of the hit points
-        with torch.enable_grad():
-            tsd_ = tsd.detach().requires_grad_(need_tsd)
-            pose_ = pose.detach().requires_grad_(need_pose)
-            grads = iter(torch.autograd.grad(
-                _phi_at(geom, cell_size, tsd_, pose_, r0)[0],
-                [t for t in (tsd_, pose_) if t.requires_grad],
-                grad_outputs=u))
-        dtsd = next(grads) if need_tsd else None
-        dpose = next(grads) if need_pose else None
-        return None, None, dtsd, dpose, None, None
+        dtsd, dpose = ctx.backward_fn(ctx.geom, ctx.cell_size, tsd, pose, r0,
+                                      hit_f, g, need_tsd, need_pose)
+        return None, None, dtsd, dpose, None, None, None
+
+
+def _march(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+           use_fast: bool, refine: bool, segments: Optional[SegmentCache]
+           ) -> Tuple[torch.Tensor, torch.Tensor, RaycastResult]:
+    """The forward's march, not differentiated: the marched (and, with
+    `refine`, polished) ranges r0, the hit mask as the field's dtype, and
+    the raycaster's result."""
+    with torch.no_grad():
+        if use_fast:
+            res = raycast_checked(grid, geom, pose, segments=segments)
+        else:
+            res = raycast(grid, geom, pose)
+        tsd = grid.tsd.detach()
+        r0 = res.ranges.to(tsd.dtype)
+        if refine:
+            r0 = _newton_refine(geom, float(grid.cell_size), tsd,
+                                pose.detach(), r0, res.mask)
+        hit_f = res.mask.to(tsd.dtype)
+    return r0, hit_f, res
 
 
 def render_ranges(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
@@ -191,17 +226,48 @@ def render_ranges(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
       where no hit), hit [B] bool, and the underlying march's
       RaycastResult (not differentiable).
     """
-    with torch.no_grad():
-        if use_fast:
-            res = raycast_checked(grid, geom, pose, segments=segments)
-        else:
-            res = raycast(grid, geom, pose)
-        tsd = grid.tsd.detach()
-        r0 = res.ranges.to(tsd.dtype)
-        if refine:
-            r0 = _newton_refine(geom, float(grid.cell_size), tsd,
-                                pose.detach(), r0, res.mask)
-        hit_f = res.mask.to(tsd.dtype)
+    r0, hit_f, res = _march(grid, geom, pose, use_fast, refine, segments)
     ranges = _IftRanges.apply(geom, float(grid.cell_size), grid.tsd, pose,
-                              r0, hit_f)
+                              r0, hit_f, _ift_backward)
     return ranges, res.mask, res
+
+
+# --------------------------------------------------------------------------
+# the compiled entry point (utils/compiled.py)
+# --------------------------------------------------------------------------
+
+def _march_bound(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
+                 use_fast: bool, refine: bool,
+                 segments: Optional[SegmentCache], stale: bool):
+    return _march(grid, geom, pose, use_fast, refine,
+                  bind_cache(segments, grid, stale))
+
+
+_forward_graph = compiled(_march_bound, static_argnames=(
+    "geom", "use_fast", "refine", "stale"))
+_backward_graph = compiled(_ift_backward, static_argnames=(
+    "geom", "cell_size", "need_tsd", "need_pose"))
+
+
+def render_ranges_jit(grid: TsdGrid, geom: SensorPolar2D,
+                      pose: torch.Tensor, use_fast: bool = True,
+                      refine: bool = True,
+                      segments: Optional[SegmentCache] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, RaycastResult]:
+    """render_ranges, compiled (ohm_tsd_slam_tpu/grid/render.py::
+    render_ranges_jit, `geom`, `use_fast` and `refine` static): the
+    forward's march (the guarded caster with its exact march in a
+    conditional node, or the exact march, and the Newton refinement) is
+    one graph a key, and the IFT backward another, replayed when autograd
+    reaches the ranges; the ranges, the hit mask and both gradients equal
+    render_ranges' in every bit.  A segment cache's staleness is decided
+    here, as in raycast_fast_jit.  On the CPU the eager functions."""
+    stale = segments is not None and is_stale(segments, grid)
+    r0, hit_f, res = _forward_graph(grid, geom, pose, use_fast, refine,
+                                    strip_cache(segments), stale)
+    ranges = _IftRanges.apply(geom, float(grid.cell_size), grid.tsd, pose,
+                              r0, hit_f, _backward_graph)
+    return ranges, res.mask, res
+
+
+render_ranges_jit.compiled = (_forward_graph, _backward_graph)

@@ -5,6 +5,9 @@ window_rounds) and compact_channels_cuda wrap the fast caster's kernels
 (csrc/<name>.cu; csrc/scan_rows.cuh is the prefix and row walk that the
 row pack and the channel compaction share).  kernel_check holds each
 against its plain twin, the push kernel's per-tile cull included.
+graph_cond_cuda wraps csrc/graph_cond.cu, no kernel of the JAX package:
+the conditional (IF) nodes that utils/compiled.py::when puts in a
+captured graph.
 
 The plain torch functions in grid/ are each kernel's reference and its
 CPU path.  No module here imports a compiler or builds a kernel at import

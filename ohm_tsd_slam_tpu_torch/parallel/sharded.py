@@ -27,6 +27,7 @@ from functools import partial
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ohm_tsd_slam_tpu_torch.config import RegMode
@@ -34,7 +35,10 @@ from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid.dispatch import best_push
 from ohm_tsd_slam_tpu_torch.grid.interpolate import interpolate_bilinear_safe
 from ohm_tsd_slam_tpu_torch.grid.raycast import RaycastResult, raycast
-from ohm_tsd_slam_tpu_torch.grid.raycast_fast import raycast_fast_batch
+from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
+    extract_segments,
+    raycast_fast_batch,
+)
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.parallel.mesh import (
     all_gather,
@@ -72,6 +76,7 @@ from ohm_tsd_slam_tpu_torch.slam.localize import (
     LocalizeParams,
     is_registration_error,
 )
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled, when
 
 _SEED_MIX = 1_000_003
 _GRID_FIELDS = ("tsd", "weight", "tile_init", "tile_initw")
@@ -83,10 +88,11 @@ class SlamStepResult(NamedTuple):
     reg_error: torch.Tensor    # [R] bool
     pose_grad: torch.Tensor    # [R, 3] d(residual)/d(x, y, theta)
     rms: torch.Tensor          # [R]
-    # the fast caster's drop count summed over the robots (int64; 0 =
-    # clean).  On one card, when nonzero the step rendered every robot
-    # again with the exact march, so no beam was lost; over a mesh there is
-    # no such fallback (it would gather the grid) and the count is all.
+    # the fast caster's drop count summed over the robots, each robot
+    # counting the extraction's drops (int64; 0 = clean).  On one card,
+    # when nonzero the step rendered every robot with the exact march, so
+    # no beam was lost; over a mesh there is no such fallback (it would
+    # gather the grid) and the count is all.
     rays_dropped: Optional[torch.Tensor] = None
 
 
@@ -129,6 +135,15 @@ def _robot_generators(seed: int, robots: range, device) -> list:
         gen.manual_seed((seed * _SEED_MIX + r) % (1 << 63))
         gens.append(gen)
     return gens
+
+
+def _exact_models(grid: TsdGrid, geom: SensorPolar2D,
+                  poses: torch.Tensor) -> RaycastResult:
+    """Every robot's model scan by the exact march, stacked as
+    raycast_fast_batch stacks them (one n_dropped, 0)."""
+    exact = [raycast(grid, geom, poses[r]) for r in range(poses.shape[0])]
+    stacked = [torch.stack(f) for f in zip(*exact)]
+    return RaycastResult(*stacked[:-1], exact[0].n_dropped)
 
 
 def _model(models: RaycastResult, r: int) -> RaycastResult:
@@ -175,22 +190,35 @@ def multi_robot_slam_step(grid: TsdGrid, poses: torch.Tensor,
         docstring); None on one card.
 
     On one card the render is one raycast_fast_batch for all robots (the
-    grid's segments extracted inline, once for all robots) and one host
-    read of the summed drop count: when anything was dropped every robot
-    is rendered again with the exact march (as the JAX package re-renders
-    the whole batch).  Over a mesh each robot is rendered by
+    grid's segments extracted inline, once for all robots), guarded once
+    for the whole batch (utils/compiled.py::when on the summed drop
+    count): when anything was dropped every robot is rendered again with
+    the exact march (as the JAX package re-renders the whole batch under
+    one lax.cond).  Eagerly the guard reads the count once; in a graph it
+    is a conditional node.  Over a mesh each robot is rendered by
     sharded_raycast (no fallback; the drops are counted), the results of
     every robot are gathered over "dp" in one collective, and the result
     holds this rank's row block and every robot's pose, error, gradient
     and rms.  The fuse keeps the old grid where a robot's registration
     failed, with torch.where on the card (no host read)."""
+    R = poses.shape[0]
+    first = 0 if mesh is None else axis_index(mesh, "dp") * R
+    generators = _robot_generators(seed, range(first, first + R),
+                                   grid.tsd.device)
+    return _slam_step(grid, poses, data, mask, params, generators, inject,
+                      mesh)
+
+
+def _slam_step(grid: TsdGrid, poses: torch.Tensor, data: torch.Tensor,
+               mask: torch.Tensor, params: LocalizeParams,
+               generators: list, inject: Optional[Sequence],
+               mesh: Optional[DeviceMesh]) -> SlamStepResult:
+    """multi_robot_slam_step on the robots' draw streams `generators`."""
     geom = params.geom
     R = poses.shape[0]
     mode = params.mode
     dtype, dev = grid.tsd.dtype, grid.tsd.device
     poses = poses.to(dtype)
-    first = 0 if mesh is None else axis_index(mesh, "dp") * R
-    generators = _robot_generators(seed, range(first, first + R), dev)
     inject = list(inject) if inject is not None else [None] * R
     # the grid readers: their row-sharded counterparts take the mesh first
     readers = (match_gauss_newton, match_tsd, match_amcl, pose_gradient)
@@ -208,12 +236,19 @@ def multi_robot_slam_step(grid: TsdGrid, poses: torch.Tensor,
                        for r in range(R)]
             models = RaycastResult(*(torch.stack(f) for f in zip(*renders)))
         else:
-            models = raycast_fast_batch(grid, geom, poses)
-            rays_dropped = models.n_dropped
-            if int(rays_dropped) > 0:
-                exact = [raycast(grid, geom, poses[r]) for r in range(R)]
-                models = RaycastResult(*(torch.stack(f)
-                                         for f in zip(*exact)))
+            # the overflow guard, once for the whole batch: every robot is
+            # rendered again with the exact march when any overflowed
+            # (its models' n_dropped 0), as the JAX package re-renders
+            # the batch under one lax.cond
+            # (the extraction's drops count once a robot, as each robot's
+            # render in the JAX package loses them)
+            seg = extract_segments(grid)
+            models = raycast_fast_batch(grid, geom, poses, segments=seg)
+            rays_dropped = models.n_dropped + (R - 1) * seg.n_dropped
+            models = when(rays_dropped > 0,
+                          partial(_exact_models, grid, geom, poses),
+                          models._replace(
+                              n_dropped=torch.zeros_like(rays_dropped)))
 
     new_poses, errs, grads, rms = [], [], [], []
     for r in range(R):
@@ -290,10 +325,31 @@ def make_sharded_step(mesh: DeviceMesh, params: LocalizeParams):
     data, mask) cuts this rank's row block of the whole grid and its "dp"
     slice of the robots; step(grid, poses, data, mask, seed=0,
     inject=None) runs multi_robot_slam_step on them with the mesh, and
-    its result's grid stays this rank's row block."""
+    its result's grid stays this rank's row block.
+
+    When the mesh's process group is NCCL the step is compiled
+    (utils/compiled.py: a CUDA graph a key, its collectives captured with
+    it, replayed with one launch a call; `step.compiled` holds it).  The
+    seed is no part of the key: the robots' draw streams are made from it
+    outside the graph and handed in.  Gloo's collectives run on the host
+    and cannot be captured, so on gloo the step runs eagerly (the tensors
+    stay on their device) and `step.compiled` is None."""
+    def sharded_step(grid, poses, data, mask, generators, inject):
+        return _slam_step(grid, poses, data, mask, params, generators,
+                          inject, mesh)
+
+    graph = (compiled(sharded_step)
+             if dist.get_backend() == dist.Backend.NCCL else None)
+
     def step(grid, poses, data, mask, seed: int = 0, inject=None):
-        return multi_robot_slam_step(grid, poses, data, mask, params,
-                                     seed=seed, inject=inject, mesh=mesh)
+        R = poses.shape[0]
+        first = axis_index(mesh, "dp") * R
+        generators = _robot_generators(seed, range(first, first + R),
+                                       grid.tsd.device)
+        return (graph or sharded_step)(grid, poses, data, mask, generators,
+                                       inject)
+
+    step.compiled = graph
 
     def place(grid, poses, data, mask):
         return (grid_sharding(mesh, grid), robot_sharding(mesh, poses),

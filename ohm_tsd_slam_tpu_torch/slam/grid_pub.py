@@ -3,6 +3,9 @@ ohm_tsd_slam_tpu/slam/grid_pub.py).
 
 ThreadGrid (src/ThreadGrid.cpp): on demand, extract the occupancy grid and
 the TSD colour image from the current grid state as host numpy arrays.
+Both run compiled (occupancy_grid_jit, grid_to_color_image_jit: a CUDA
+graph a key on the card, the eager functions on the CPU); the messages
+are those of the eager functions in every bit.
 """
 
 from __future__ import annotations
@@ -10,8 +13,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from ohm_tsd_slam_tpu_torch.config import GridPubConfig
-from ohm_tsd_slam_tpu_torch.grid.axis_aligned import occupancy_grid
-from ohm_tsd_slam_tpu_torch.grid.color import grid_to_color_image
+from ohm_tsd_slam_tpu_torch.grid.axis_aligned import occupancy_grid_jit
+from ohm_tsd_slam_tpu_torch.grid.color import grid_to_color_image_jit
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.slam.messages import ImageMsg, OccupancyGridMsg
 
@@ -28,7 +31,7 @@ class GridPublisher:
     def publish(self, grid: TsdGrid, stamp: float = 0.0
                 ) -> Tuple[OccupancyGridMsg, Optional[ImageMsg]]:
         """One ThreadGrid cycle (ThreadGrid.cpp:72-133)."""
-        res = occupancy_grid(
+        res = occupancy_grid_jit(
             grid,
             use_inflation=self.config.use_object_inflation,
             inflation_factor=self.config.object_inflation_factor)
@@ -42,7 +45,7 @@ class GridPublisher:
         )
         img = None
         if self.config.pub_tsd_color_map:
-            img = ImageMsg(data=grid_to_color_image(grid).cpu().numpy(),
+            img = ImageMsg(data=grid_to_color_image_jit(grid).cpu().numpy(),
                            stamp=stamp)
         self.last_map = occ
         self.last_image = img

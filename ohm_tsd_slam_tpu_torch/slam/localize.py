@@ -18,17 +18,19 @@ the grid state:
   * significance gate for map updates
     (|sin Δφ| > ROT_MIN or ‖Δt‖ > TRNS_MIN)             (:402,728-736)
 
-`localize_step` renders with `raycast_fast` unguarded and reports what
-the caster lost to its fixed capacities in `rays_dropped`; the node reads
-it with the gate flags and re-runs the step with the exact march when it
-is nonzero (slam/node.py), which gives the JAX package's guarded result
-(`raycast_checked` there) without another read of the device.  No mode
+With `fast_raycast` the step renders with the guarded caster
+`raycast_checked`, as the JAX package's does: the exact march re-renders
+the scan when the fast caster lost anything to its fixed capacities, and
+`rays_dropped` reports the fast caster's count.  Eagerly that guard reads
+the drop count once (utils/compiled.py::when); no other part of any mode
 reads the device inside the step.
 
 `localize_step_jit` is the step compiled, as the JAX package's
 `jax.jit(localize_step, static_argnames=("params",))`: on the card one
 CUDA graph a key (utils/compiled.py), in every mode, the stochastic
-matchers' draws included; on the CPU the eager step.  The node calls it.
+matchers' draws included, the guard a conditional node of the graph (one
+graph serves the scans that overflow and those that do not, and a replay
+reads nothing back); on the CPU the eager step.  The node calls it.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
     SegmentCache,
     bind_cache,
     is_stale,
-    raycast_fast,
+    raycast_checked,
     strip_cache,
 )
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
@@ -109,8 +111,7 @@ class LocalizeResult(NamedTuple):
     icp_iterations: torch.Tensor
     # segments or beams the fast caster lost to its fixed capacities, or
     # every beam for a stale segment cache (int64; 0 for the exact march).
-    # Nonzero means the model scan may miss beams: the node re-renders
-    # with the exact march.
+    # Nonzero means the guard rendered the scan with the exact march.
     rays_dropped: torch.Tensor
 
 
@@ -189,7 +190,9 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   odom_state: Optional[odometry.OdomState] = None,
                   segments: Optional[SegmentCache] = None) -> LocalizeResult:
-    """One localization cycle.  Reads nothing back to the host.
+    """One localization cycle.  With `params.fast_raycast` it reads the
+    fast caster's drop count back once, for the guard (raycast_checked);
+    localize_step_jit reads nothing back.
 
     Args:
       grid: current map state.
@@ -226,8 +229,10 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
                        torch.zeros((), dtype=torch.int64,
                                    device=scene.device))
 
+    # the fast caster is overflow-guarded: on a capacity overflow the
+    # exact march renders the scan, and the drop count is surfaced
     if params.fast_raycast:
-        model = raycast_fast(grid, geom, pose, segments=segments)
+        model = raycast_checked(grid, geom, pose, segments=segments)
     else:
         model = raycast(grid, geom, pose)
 
@@ -303,8 +308,8 @@ def localize_step_jit(grid: TsdGrid, pose: torch.Tensor,
     gates) is one graph a key, replayed with one launch; the key holds
     `params`, the shapes and dtypes, which optional argument is None and
     whether `segments` is stale for `grid` (decided here, on the caller's
-    objects).  `generator`'s draws equal the eager step's, and it is left
-    where the eager step leaves it."""
+    objects), never the guard's branch.  `generator`'s draws equal the
+    eager step's, and it is left where the eager step leaves it."""
     stale = segments is not None and is_stale(segments, grid)
     return _step_graph(grid, pose, last_pose, data, mask, params, T_prereg,
                        generator, odom_state, strip_cache(segments), stale)

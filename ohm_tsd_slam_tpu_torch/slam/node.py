@@ -15,9 +15,10 @@ never write into a grid a reader may hold), and the three roles are:
 
 `process_scan` reads the device twice per scan, as the JAX node does: the
 two gate flags with the fast caster's drop count, then the accepted pose.
-A nonzero drop count re-runs the step with the exact march (the JAX
-node's guarded raycast_checked), which costs a third read on that scan
-only.  The fast caster's segment extraction runs once per grid version,
+The step guards its render itself (slam/localize.py: raycast_checked, the
+exact march where the fast caster overflowed), so a nonzero drop count is
+only logged, and an overflowing scan costs no third read and no second
+step.  The fast caster's segment extraction runs once per grid version,
 after the mapper drain that made it, and every scan reuses it.  A robot
 in mode GN renders no model scan, so the node extracts nothing for it
 (as the JAX node): on a node whose robots all run GN, kernels A, B and E
@@ -32,14 +33,13 @@ On the card the node runs the compiled step, as the JAX node runs its
 jitted one: `localize_step_jit` and `extract_segments_jit`, each a CUDA
 graph a key (utils/compiled.py), captured when a localizer starts (with
 the real shapes, so the capture stays out of the first scan's latency)
-and replayed every scan; the exact-march re-run of an overflowing scan
-stays eager.  On the CPU both run eagerly.
+and replayed every scan, the overflow guard inside the graph.  On the
+CPU both run eagerly.
 
 The stochastic matchers (modes EXP/PDF/TSD/AMCL) draw from a
 `torch.Generator` that the node seeds anew for every robot and scan from
 its one `seed`, as the JAX node folds robot and scan counter into its base
-key: a run is a function of the seed, and the exact-march re-run of a scan
-draws the same numbers as its first run.
+key: a run is a function of the seed.
 
     node = SlamNode(from_flat_params({...}), dtype=torch.float32)
     node.process_scan(robot, LaserScan(...))
@@ -78,7 +78,6 @@ from ohm_tsd_slam_tpu_torch.slam.grid_pub import GridPublisher
 from ohm_tsd_slam_tpu_torch.slam.localize import (
     LocalizeParams,
     calc_angle_02pi,
-    localize_step,
     localize_step_jit,
 )
 from ohm_tsd_slam_tpu_torch.slam.mapping import Mapper
@@ -326,20 +325,13 @@ class SlamNode:
             [res.reg_error.to(torch.int64), res.significant.to(torch.int64),
              res.rays_dropped.to(torch.int64)]).tolist()
         if n_over > 0:
-            # the fast caster lost segments or beams to a fixed capacity
-            # (or its cache was stale): re-render with the exact march, as
-            # the JAX node's raycast_checked does, and log the pressure
-            # (RayCastPolar2D's degradation warning analogue,
+            # fast-raycast capacity overflow: the guarded exact march
+            # re-rendered the scan inside the step (no beams lost) — log
+            # the pressure (RayCastPolar2D's degradation warning analogue,
             # ThreadLocalize.cpp:354-358)
             native.log(native.LOG_WARN, "localize",
                        f"fast raycast overflowed by {n_over} "
                        "segments/beams; exact-march fallback used")
-            res = localize_step(
-                grid, loc.pose, loc.last_pose, data, mask,
-                dataclasses.replace(params, fast_raycast=False),
-                generator=self._draws(robot, count), odom_state=odom_state)
-            reg_error, significant = torch.stack(
-                [res.reg_error, res.significant]).tolist()
         loc.rays_dropped = n_over
         if reg_error:
             pose_msg = PoseStamped(math.nan, math.nan, math.nan,

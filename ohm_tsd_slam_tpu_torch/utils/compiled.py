@@ -43,6 +43,13 @@ a call on another stream wait for the clones of the last one.  Captures
 are serialised by one lock and use the `thread_local` capture mode, so a
 thread that replays or runs eagerly meanwhile does not break a capture.
 
+A branch on a device value inside fn goes through `when(pred, fn, out)`:
+eagerly it reads `pred` once and branches on the host; under a capture
+it puts fn's kernels in a conditional (IF) node of the graph, so one
+graph serves both branches and a replay reads nothing back.  The warm-up
+runs both branches, so that the ops of the branch the warm-up's inputs do
+not take have run once before the capture too.
+
 The kernel wrappers count their launches in Python (`fn.launches`, see
 ops/*_cuda.py): the warm-up and the capture call them, a replay does not.
 What the device ran on a compiled path is read from a trace of it
@@ -56,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import inspect
+import sys
 import threading
 import time
 import weakref
@@ -64,6 +72,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 
 _capture_lock = threading.Lock()
+# `.warming`: this thread runs the warm-up call of a capture; `.capture`:
+# the _Graph this thread is capturing (see `when`)
+_local = threading.local()
 
 
 # --------------------------------------------------------------------------
@@ -132,6 +143,55 @@ def cuda_device(leaves: list) -> Optional[torch.device]:
 
 
 # --------------------------------------------------------------------------
+# a branch on a device value
+# --------------------------------------------------------------------------
+
+def when(pred: torch.Tensor, fn: Callable[[], Any], out):
+    """`fn()` where the 0-dim tensor `pred` is true, else `out`: the
+    port's `lax.cond(pred, fn, lambda: out)`.  fn's result must have
+    out's structure, shapes and dtypes.
+
+    On the CPU, and on the card outside a capture, it reads `pred` once
+    and branches on the host; the warm-up of a capture (`compiled`) runs
+    fn whichever way `pred` goes, so that both branches' ops have run
+    once before the capture.  Under a capture by `compiled` it records fn
+    into a conditional (IF) node of the graph on `pred`
+    (ops/graph_cond_cuda.py) and copies fn's result into out's tensors
+    inside the node, so that what follows reads one set of buffers
+    whichever branch a replay takes (a leaf that fn returns unchanged is
+    not copied); it returns `out` then.  Under any other capture, or where
+    the node cannot be added, it raises: the eager branch never stands in
+    for the graph's."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        from ohm_tsd_slam_tpu_torch.ops import graph_cond_cuda
+
+        graph = getattr(_local, "capture", None)
+        if graph is None:
+            raise RuntimeError("when: a capture not made by compiled() "
+                               "cannot hold a conditional node")
+        with graph_cond_cuda.if_body(pred.to(torch.bool),
+                                     graph.body_pool()):
+            graph.body_uses += 1        # if_body took a reference
+            taken = fn()
+            leaves_out, leaves_taken = [], []
+            if flatten(out, leaves_out) != flatten(taken, leaves_taken):
+                raise ValueError("when: fn's result differs from out in "
+                                 "structure, shape or dtype")
+            for o, t in zip(leaves_out, leaves_taken):
+                if t is not o:
+                    o.copy_(t)
+        return out
+    if getattr(_local, "warming", False):
+        if pred.is_cuda:
+            from ohm_tsd_slam_tpu_torch.ops import graph_cond_cuda
+
+            graph_cond_cuda.ready()
+        taken = fn()
+        return taken if bool(pred) else out
+    return fn() if bool(pred) else out
+
+
+# --------------------------------------------------------------------------
 # one captured graph
 # --------------------------------------------------------------------------
 
@@ -161,21 +221,48 @@ class _Graph:
         stream = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            fn(unflatten(spec, self.static))     # the warm-up
+        _local.warming = True
+        try:
+            with torch.cuda.stream(side):
+                fn(unflatten(spec, self.static))     # the warm-up
+        finally:
+            _local.warming = False
         stream.wait_stream(side)
         versions = [self.static[i]._version for i in self.tensors]
         self.graph = torch.cuda.CUDAGraph()
+        self.device = device
+        self._body_pool, self.body_uses = None, 0
         for _, g in self.gens:
             self.graph.register_generator_state(g)
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            out = fn(unflatten(spec, self.static))
+        _local.capture = self
+        try:
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                out = fn(unflatten(spec, self.static))
+        finally:
+            _local.capture = None
         # a buffer that fn writes is copied on every call
         self.written = {i for i, v in zip(self.tensors, versions)
                         if self.static[i]._version != v}
         self.out_leaves: list = []
         self.out_spec = flatten(out, self.out_leaves)
         self.capture_s = time.perf_counter() - t0
+
+    def body_pool(self):
+        """The private memory pool of this graph's conditional nodes'
+        bodies (`when`); `body_uses` counts the references they took,
+        given back when the graph is dropped."""
+        if self._body_pool is None:
+            from ohm_tsd_slam_tpu_torch.ops import graph_cond_cuda
+
+            self._body_pool = torch.cuda.graph_pool_handle()
+            self._release = graph_cond_cuda.release
+        return self._body_pool
+
+    def __del__(self):
+        # at interpreter exit the allocator goes with the process
+        if getattr(self, "body_uses", 0) and not sys.is_finalizing():
+            self._release(self.device, self._body_pool, self.body_uses)
 
     def __call__(self, leaves: list, device: torch.device):
         with self.lock:

@@ -16,6 +16,10 @@ tests/test_torch_gauss_newton.py, tests/test_torch_registration.py), the
 caster's coordinates and normals within 1e-9
 (tests/test_torch_raycast_fast.py), every flag, count and mask equal.
 
+On a segment cache that overflows its capacity (the same in both
+packages) the port's localize_step renders with the exact march, as the
+JAX package's guarded step does, and reports the fast caster's drops.
+
 The node's trace with the compiled step equals the eager node's in every
 bit, in the modes ICP and TSD (its draws included); the cache key
 separates static arguments, shapes, dtypes, None-ness and a segment
@@ -147,6 +151,36 @@ def test_localize_step_jit_matches_jax(mode, monkeypatch, no_graphs):
                                     tparams, segments=seg)
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(eager, f)), f
+
+
+OVERFLOW_SEGMENTS = 128       # below the case grid's 283 segments
+
+
+def test_localize_step_guards_an_overflow_as_jax(no_graphs):
+    """A segment cache that overflows its capacity, the same in both
+    packages: the JAX step renders with the guarded caster
+    (raycast_checked: the exact march), so the port's step must too, and
+    report the fast caster's drop count."""
+    c, (pose, data, mask), (jpose, jdata, jmask) = _inputs()
+    jparams, tparams = _params(MODES["icp"])
+    assert tparams.fast_raycast and jparams.fast_raycast
+    seg = rf.extract_segments(c["grid"], max_segments=OVERFLOW_SEGMENTS)
+    jseg = jrf.extract_segments(c["jgrid"], max_segments=OVERFLOW_SEGMENTS)
+    assert int(seg.n_dropped) == int(jseg.n_dropped) > 0
+    got = tlocalize.localize_step(c["grid"], pose, pose, data, mask,
+                                  tparams, segments=seg)
+    want = jlocalize.localize_step(c["jgrid"], jpose, jpose, jdata, jmask,
+                                   jparams, segments=jseg)
+    for f in ("reg_error", "significant", "model_valid", "scene_valid",
+              "icp_iterations", "rays_dropped"):
+        assert int(getattr(got, f)) == int(getattr(want, f)), f
+    assert int(got.rays_dropped) > 0 and not bool(got.reg_error)
+    for f in ("pose", "T", "rms"):
+        _close(getattr(got, f), getattr(want, f))
+    compiled_ = tlocalize.localize_step_jit(c["grid"], pose, pose, data,
+                                            mask, tparams, segments=seg)
+    for f in got._fields:
+        assert torch.equal(getattr(compiled_, f), getattr(got, f)), f
 
 
 def test_icp_jit_matches_jax(no_graphs):
@@ -316,7 +350,7 @@ def test_cpu_call_builds_no_graph(no_graphs):
     x = torch.arange(4.0)
     assert torch.equal(f(x, scale=2.0), x * 2.0)
     assert f.captures == 0 and f.graphs() == []
-    for name in ("_extract_graph", "_render_graph"):
+    for name in ("_extract_graph", "_render_graph", "_checked_graph"):
         assert getattr(rf, name).graphs() == []
     assert tlocalize.localize_step_jit.compiled.graphs() == []
     assert icp_jit.graphs() == []

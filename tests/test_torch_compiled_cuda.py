@@ -23,8 +23,9 @@ Asserted, on a float32 room (map_size 8, 0.04 m cells, 361 beams):
     counts every beam as dropped, as the eager caster does;
   * the draws of a replay equal those of a fresh generator of the same
     seed, and the caller's generator is left where the eager call leaves
-    it; a segment overflow makes the node re-run the scan eagerly with
-    the exact march, as the eager node does;
+    it; on a segment overflow the guard inside the node's graph renders
+    with the exact march, so the trace equals the exact-march node's,
+    with no new capture and no eager step;
   * the kernel wrappers count the calls that launch: the warm-up and the
     capture call them, a replay calls none;
   * the threaded runtime (SlamNode.start()) with two robots on the
@@ -63,6 +64,7 @@ from ohm_tsd_slam_tpu_torch.registration.gauss_newton import (
 )
 from ohm_tsd_slam_tpu_torch.registration.icp import IcpParams, icp, icp_jit
 from ohm_tsd_slam_tpu_torch.sensor import polar2d
+from ohm_tsd_slam_tpu_torch.slam import localize as tlocalize
 from ohm_tsd_slam_tpu_torch.slam import node as tnode
 from ohm_tsd_slam_tpu_torch.slam.localize import (
     LocalizeParams,
@@ -179,6 +181,18 @@ def _drive(node, n=SCANS):
         updates += node.grid.tsd is not before
         poses.append(node.localizers[0].pose.clone())
     return torch.stack(poses), updates
+
+
+def _drive_from(node, k0, n):
+    """_drive's scans k0 .. n - 1."""
+    poses = []
+    for k in range(k0, n):
+        xyt = (5.12 + 0.03 * k, 5.12, 0.2)
+        node.process_scan(0, LaserScan(ranges=_ranges(xyt), angle_min=PHI0,
+                                       angle_increment=RES, range_max=RMAX,
+                                       stamp=float(k)))
+        poses.append(node.localizers[0].pose.clone())
+    return torch.stack(poses)
 
 
 @pytest.mark.cuda
@@ -368,18 +382,31 @@ def test_draws_equal_a_fresh_generators(cuda_device):
 
 
 @pytest.mark.cuda
-def test_node_overflow_reruns_eagerly(cuda_device, monkeypatch):
-    """A segment overflow on every scan: the compiled step reports it and
-    the node re-runs the scan with the eager exact march, as the eager
-    node does, bit for bit."""
+def test_node_overflow_guard_runs_in_the_graph(cuda_device, monkeypatch):
+    """A segment overflow on every scan: the compiled step's guard renders
+    each scan with the exact march inside the graph (a conditional node),
+    so the node's trace equals that of a node on the exact march, bit for
+    bit, with no new capture after the priming one and no eager step."""
     monkeypatch.setattr(rf, "MAX_SEGMENTS", 128)
     cfg = _node_cfg(int(RegMode.ICP))
-    with _eager_step(monkeypatch):
-        eager, _ = _drive(tnode.SlamNode(cfg, device=cuda_device), 6)
+    from_config = LocalizeParams.from_config
+    with _eager_step(monkeypatch), monkeypatch.context() as m:
+        m.setattr(LocalizeParams, "from_config", staticmethod(
+            lambda *a, **k: dataclasses.replace(from_config(*a, **k),
+                                                fast_raycast=False)))
+        want, _ = _drive(tnode.SlamNode(cfg, device=cuda_device), 6)
+    graph = localize_step_jit.compiled
     node = tnode.SlamNode(cfg, device=cuda_device)
-    got, _ = _drive(node, 6)
+    first, _ = _drive(node, 1)          # initialises, primes the step
+    captures = graph.captures
+    eager = []
+    with monkeypatch.context() as m:
+        m.setattr(tlocalize, "localize_step",
+                  lambda *a, **k: eager.append(1) or localize_step(*a, **k))
+        rest = _drive_from(node, 1, 6)
     assert node.localizers[0].rays_dropped > 0
-    assert _same(got, eager)
+    assert graph.captures == captures and not eager
+    assert _same(torch.cat([first, rest]), want)
 
 
 @pytest.mark.cuda

@@ -202,7 +202,7 @@ def test_localize_step_gn_renders_nothing(scene, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("mode GN rendered a model scan")
 
-    monkeypatch.setattr(tlocalize, "raycast_fast", refuse)
+    monkeypatch.setattr(tlocalize, "raycast_checked", refuse)
     monkeypatch.setattr(tlocalize, "raycast", refuse)
     geom = scene["geom"]
     params = _gn_params(tlocalize.LocalizeParams, IcpParams, geom,

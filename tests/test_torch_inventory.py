@@ -54,25 +54,6 @@ ALLOWED_NAMES = {
     ("grid/compact.py", "compact_mask_values"):
         "folded into compact_mask when the compaction was ported",
 }
-# the JAX package's compiled entry points that the port has not compiled
-# yet: a later slice (ROADMAP item 23) captures them as the five of
-# localize_step_jit's slice are
-_LATER = "a later slice (ROADMAP item 23)"
-ALLOWED_NAMES.update({
-    (module, name): _LATER for module, name in (
-        ("grid/push.py", "push_jit"),
-        ("grid/push.py", "push_tree_jit"),
-        ("grid/raycast.py", "raycast_jit"),
-        ("grid/raycast_fast.py", "raycast_checked_jit"),
-        ("grid/render.py", "render_ranges_jit"),
-        ("grid/axis_aligned.py", "occupancy_grid_jit"),
-        ("grid/color.py", "grid_to_color_image_jit"),
-        ("grid/__init__.py", "push_jit"),
-        ("grid/__init__.py", "push_tree_jit"),
-        ("grid/__init__.py", "raycast_jit"),
-        ("grid/__init__.py", "render_ranges_jit"),
-    )})
-
 # (module, class, member) of a shared class with no counterpart
 ALLOWED_MEMBERS = {
     ("grid/raycast_fast.py", "SegmentCache", "fingerprint"):

@@ -11,8 +11,10 @@ Asserted:
     mask is the CPU's but for at most HIT_FLIPS of the beams (a grazing
     beam can flip with the last bit of its direction), which the compared
     weighted sum weighs 0;
-  * localize_step in the modes GN and AMCL reads nothing back to the host
-    (torch.cuda.set_sync_debug_mode("error") raises on any sync);
+  * localize_step_jit in the modes GN and AMCL reads nothing back to the
+    host once captured, nor does the eager step in mode GN, which renders
+    nothing (torch.cuda.set_sync_debug_mode("error") raises on any sync;
+    the eager step in mode AMCL reads the overflow guard's drop count);
   * icp with IcpParams.record_pairs and record_T on, fused and modular, on
     a room pair at 1081 beams, gives what it gives with them off in every
     bit and reads nothing back; its histories have their shapes, the last
@@ -40,6 +42,7 @@ from ohm_tsd_slam_tpu_torch.sensor import polar2d
 from ohm_tsd_slam_tpu_torch.slam.localize import (
     LocalizeParams,
     localize_step,
+    localize_step_jit,
 )
 from ohm_tsd_slam_tpu_torch.utils.testing import (
     limit_cpu_threads,
@@ -153,12 +156,16 @@ def test_localize_step_reads_nothing_on_card(cuda_device, mode):
     grid, pose, data, mask, params = _step_inputs(cuda_device, mode)
     seg = rf.extract_segments(grid)
     gen = torch.Generator(device=cuda_device)
+    args = (grid, pose, pose, data, mask, params)
+    gen.manual_seed(3)
+    localize_step_jit(*args, generator=gen, segments=seg)   # the capture
     gen.manual_seed(3)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        res = localize_step(grid, pose, pose, data, mask, params,
-                            generator=gen, segments=seg)
+        res = localize_step_jit(*args, generator=gen, segments=seg)
+        if mode == RegMode.GN:
+            localize_step(*args, generator=gen, segments=seg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert not bool(res.reg_error)

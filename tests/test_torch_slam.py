@@ -185,9 +185,10 @@ def test_node_extracts_once_per_grid_version(monkeypatch):
 
 
 def test_node_overflow_reruns_exact_march(monkeypatch):
-    """A segment overflow on every scan: the node re-runs the step with
-    the exact march, so its trace is the exact-march node's, bit for
-    bit, and the drop count is kept on the localizer."""
+    """A segment overflow on every scan: the step's guard renders each
+    scan with the exact march inside the step (raycast_checked), so the
+    node's trace is the exact-march node's, bit for bit, and the drop
+    count is kept on the localizer."""
     scans = [_room_scan(5.12 + 0.03 * k, float(k)) for k in range(5)]
     with pytest.MonkeyPatch.context() as mp:
         _exact_march(tlocalize.LocalizeParams, mp)
@@ -266,10 +267,10 @@ def test_node_gives_each_robot_and_scan_its_own_stream():
 
 
 def test_node_overflow_rerun_draws_the_same_stream(monkeypatch):
-    """TSD mode with a segment overflow on every scan: the exact-march
-    re-run draws what the first run drew, so the trace equals that of a
-    node rendering with the exact march from the same seed, bit for
-    bit."""
+    """TSD mode with a segment overflow on every scan: the guard inside
+    the step renders with the exact march before the matcher draws, so
+    the draws, and the trace, equal those of a node rendering with the
+    exact march from the same seed, bit for bit."""
     cfg = _ransac_cfg(3)
     with pytest.MonkeyPatch.context() as mp:
         _exact_march(tlocalize.LocalizeParams, mp)

@@ -21,8 +21,15 @@ compiled node) is reported apart.  Then localize_step on the node's last
 grid and pose: CUDA events around each call (chip_smoke.py::time_cuda) and
 the host's clock around each call and a synchronize.  Medians and
 quartiles are printed with the card's name and power limit; --out writes
-every list as JSON.  Last, the device memory that each node reserves
-over the path run alone (path_memory), its graphs' pools included.
+every list as JSON.  Then the device memory that each node reserves
+over the path run alone (path_memory), its graphs' pools included.  Last,
+the overflow scan (overflow_times): the ICP path on the node as it is,
+with raycast_fast.MAX_SEGMENTS forced just above the first grid's
+segments, so the first scans fit and the growing map overflows; the
+process_scan times of the scans that overflow and of those that fit,
+apart.  Where the node re-runs an overflowing scan's step eagerly with the
+exact march (before the guard went into the step) that is what it times;
+with the guard inside the compiled step, the replay.
 """
 
 from __future__ import annotations
@@ -149,6 +156,46 @@ def path_memory(cs, dev, flat: dict, n_scans: int, variant) -> dict:
     return out
 
 
+def overflow_times(cs, dev, flat: dict, n_scans: int) -> tuple:
+    """process_scan of the node as it is, every robot in turns, with
+    raycast_fast.MAX_SEGMENTS forced to the least multiple of 128 above
+    the segments of the grid the path starts from (restored after).
+    Returns the capacity and the ms of the scans after each robot's first
+    that overflowed ("over") and that did not ("fit")."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode
+
+    cfg = from_flat_params(flat)
+    _, scans = path_scans(cs, cfg, n_scans)
+    probe = SlamNode(cfg, dtype=torch.float32, device=dev)
+    with step_context(cs, False):
+        probe.process_scan(0, cs.scan_msg(scans[0][0],
+                                          cfg.robots[0].sensor.max_range,
+                                          0.0))
+    cap = 128 * (int(rf.extract_segments(probe.grid).count) // 128 + 1)
+    del probe
+    saved = rf.MAX_SEGMENTS
+    rf.MAX_SEGMENTS = cap
+    out = {"over": [], "fit": []}
+    try:
+        node = SlamNode(cfg, dtype=torch.float32, device=dev)
+        for k in range(n_scans):
+            for r, rc in enumerate(cfg.robots):
+                msg = cs.scan_msg(scans[r][k], rc.sensor.max_range, float(k))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                node.process_scan(r, msg)
+                torch.cuda.synchronize()
+                if k:
+                    over = node.localizers[r].rays_dropped > 0
+                    out["over" if over else "fit"].append(
+                        (time.perf_counter() - t0) * 1e3)
+    finally:
+        rf.MAX_SEGMENTS = saved
+    return cap, out
+
+
 def step_inputs(cs, node) -> tuple:
     """Robot 0's arguments of localize_step on the node's last grid and
     pose, a fresh scan from that pose, and its draw streams."""
@@ -225,6 +272,11 @@ def main() -> int:
         for v in variants:
             memory[f"{args.tag} {path} {names[v]}"] = path_memory(
                 cs, dev, flat, n, v)
+    cap, over = overflow_times(cs, dev, cs.DOUBLE_LASER, cs.SCANS_PER_ROBOT)
+    for what in ("over", "fit"):
+        lists[f"{args.tag} ICP overflow (MAX_SEGMENTS {cap}) process_scan, "
+              f"scans that {'overflow' if what == 'over' else 'fit'}"] = \
+            over[what]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
