@@ -8,7 +8,8 @@ Subcommands:
   run        run SLAM over a scan log with a YAML profile; writes the
              node's observable outputs: trajectory.csv, map.pgm,
              map_color.ppm, grid.npz (and grid_store.txt with
-             --store-text)
+             --store-text; with --spans PATH the spans and counters of
+             utils/spans.py as a Chrome trace)
   launch     run a reference launch profile (single or multi)
   ros        run the ROS 2 bridge node (requires rclpy; see
              ohm_tsd_slam_tpu_torch/ros_bridge.py)
@@ -92,6 +93,7 @@ def cmd_run(args) -> int:
     from ohm_tsd_slam_tpu_torch.grid import checkpoint
     from ohm_tsd_slam_tpu_torch.slam.messages import LaserScan
     from ohm_tsd_slam_tpu_torch.slam.node import SlamNode
+    from ohm_tsd_slam_tpu_torch.utils import spans
 
     cfg = _load_config(args.config)
     log = np.load(args.scans)
@@ -101,6 +103,8 @@ def cmd_run(args) -> int:
 
     node = SlamNode(cfg, seed=args.seed, device=args.device)
     os.makedirs(args.out, exist_ok=True)
+    if args.spans:
+        spans.enable()
 
     rows, scan_ms = [], []
     for k, r in enumerate(ranges):
@@ -140,6 +144,10 @@ def cmd_run(args) -> int:
                              os.path.join(args.out, "grid_store.txt"))
     print(f"processed {len(ranges)} scans -> {args.out}/ "
           f"(trajectory.csv, map.pgm, map_color.ppm, grid.npz)")
+    if args.spans:
+        spans.write_chrome_trace(args.spans)
+        spans.disable()
+        print(f"spans and counters -> {args.spans} (Chrome trace)")
     if len(scan_ms) > 1:
         # the first scan initializes the node and is left out
         print(f"process_scan on {node.device}: median "
@@ -287,6 +295,10 @@ def main(argv=None) -> int:
                    help="also write the reference-format text checkpoint")
     r.add_argument("--device", default=None,
                    help="torch device of the node (default: the CUDA card)")
+    r.add_argument("--spans", default=None, metavar="PATH",
+                   help="record the node's spans and counters "
+                        "(utils/spans.py) and write them to PATH as a "
+                        "Chrome trace")
     r.set_defaults(fn=cmd_run)
 
     rb = sub.add_parser("ros", help="run the ROS 2 bridge node")

@@ -154,7 +154,8 @@ def occupancy_grid(grid: TsdGrid, use_inflation: bool = False,
 
 _occupancy_graph = compiled(occupancy_grid,
                             static_argnames=("use_inflation",
-                                             "inflation_factor"))
+                                             "inflation_factor"),
+                            name="occupancy_grid_jit")
 
 
 def occupancy_grid_jit(grid: TsdGrid, use_inflation: bool = False,

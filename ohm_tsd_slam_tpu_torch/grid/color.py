@@ -67,7 +67,8 @@ def grid_to_color_image(grid: TsdGrid, width: int = None,
 
 
 _color_graph = compiled(grid_to_color_image,
-                        static_argnames=("width", "height"))
+                        static_argnames=("width", "height"),
+                        name="grid_to_color_image_jit")
 
 
 def grid_to_color_image_jit(grid: TsdGrid, width: int = None,

@@ -318,7 +318,8 @@ def _kernel_route(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
                                     tile_gate=tile_gate, ty0=ty0)
 
 
-_push_graph = compiled(_kernel_route, static_argnames=("geom", "ty0"))
+_push_graph = compiled(_kernel_route, static_argnames=("geom", "ty0"),
+                       name="push_jit")
 
 
 def push_jit(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
@@ -334,7 +335,8 @@ def push_jit(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
 push_jit.compiled = _push_graph
 
-_tree_graph = compiled(push_tree, static_argnames=("geom",))
+_tree_graph = compiled(push_tree, static_argnames=("geom",),
+                       name="push_tree_jit")
 
 
 def push_tree_jit(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,

@@ -210,7 +210,8 @@ def sensor_frame(pose: torch.Tensor, coords_w: torch.Tensor,
     return RaycastResult(coords_s, normals_s, mask, ranges, n_dropped)
 
 
-_raycast_graph = compiled(raycast, static_argnames=("geom",))
+_raycast_graph = compiled(raycast, static_argnames=("geom",),
+                          name="raycast_jit")
 
 
 def raycast_jit(grid: TsdGrid, geom: SensorPolar2D,

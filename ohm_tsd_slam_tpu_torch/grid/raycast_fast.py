@@ -752,7 +752,8 @@ def _extract_tensors(grid: TsdGrid, max_segments: int) -> SegmentCache:
     return strip_cache(extract_segments(grid, max_segments))
 
 
-_extract_graph = compiled(_extract_tensors, static_argnames=("max_segments",))
+_extract_graph = compiled(_extract_tensors, static_argnames=("max_segments",),
+                          name="extract_segments_jit")
 
 
 def extract_segments_jit(grid: TsdGrid,
@@ -779,7 +780,8 @@ def _render(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
 
 _render_graph = compiled(_render, static_argnames=("geom", "stale",
-                                                   "max_segments"))
+                                                   "max_segments"),
+                         name="raycast_fast_jit")
 
 
 def raycast_fast_jit(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
@@ -802,7 +804,8 @@ def _checked(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
     return raycast_checked(grid, geom, pose, bind_cache(segments, grid, stale))
 
 
-_checked_graph = compiled(_checked, static_argnames=("geom", "stale"))
+_checked_graph = compiled(_checked, static_argnames=("geom", "stale"),
+                          name="raycast_checked_jit")
 
 
 def raycast_checked_jit(grid: TsdGrid, geom: SensorPolar2D,

@@ -244,9 +244,10 @@ def _march_bound(grid: TsdGrid, geom: SensorPolar2D, pose: torch.Tensor,
 
 
 _forward_graph = compiled(_march_bound, static_argnames=(
-    "geom", "use_fast", "refine", "stale"))
+    "geom", "use_fast", "refine", "stale"), name="render_ranges_jit")
 _backward_graph = compiled(_ift_backward, static_argnames=(
-    "geom", "cell_size", "need_tsd", "need_pose"))
+    "geom", "cell_size", "need_tsd", "need_pose"),
+    name="render_ranges_jit.backward")
 
 
 def render_ranges_jit(grid: TsdGrid, geom: SensorPolar2D,

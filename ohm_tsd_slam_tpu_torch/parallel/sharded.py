@@ -338,7 +338,7 @@ def make_sharded_step(mesh: DeviceMesh, params: LocalizeParams):
         return _slam_step(grid, poses, data, mask, params, generators,
                           inject, mesh)
 
-    graph = (compiled(sharded_step)
+    graph = (compiled(sharded_step, name="sharded_step")
              if dist.get_backend() == dist.Backend.NCCL else None)
 
     def step(grid, poses, data, mask, seed: int = 0, inject=None):

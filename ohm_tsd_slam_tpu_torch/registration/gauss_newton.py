@@ -202,4 +202,5 @@ def match_gauss_newton(grid: TsdGrid, sensor_pose: torch.Tensor,
 # the iterations a key (`field_fn` and `reduce_fn` key it by identity);
 # eager on the CPU
 match_gauss_newton_jit = compiled(match_gauss_newton,
-                                  static_argnames=("params",))
+                                  static_argnames=("params",),
+                                  name="match_gauss_newton_jit")

@@ -256,4 +256,4 @@ def icp(model: torch.Tensor, model_mask: torch.Tensor,
 # one CUDA graph of the whole loop a key (params, record_pairs and record_T
 # among them; `maxed` is a Python bool of the iteration index, so it is
 # frozen correctly), replayed with one launch; eager on the CPU
-icp_jit = compiled(icp, static_argnames=("params",))
+icp_jit = compiled(icp, static_argnames=("params",), name="icp_jit")

@@ -17,6 +17,7 @@ from ohm_tsd_slam_tpu_torch.grid.axis_aligned import occupancy_grid_jit
 from ohm_tsd_slam_tpu_torch.grid.color import grid_to_color_image_jit
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.slam.messages import ImageMsg, OccupancyGridMsg
+from ohm_tsd_slam_tpu_torch.utils import spans
 
 
 class GridPublisher:
@@ -30,23 +31,30 @@ class GridPublisher:
 
     def publish(self, grid: TsdGrid, stamp: float = 0.0
                 ) -> Tuple[OccupancyGridMsg, Optional[ImageMsg]]:
-        """One ThreadGrid cycle (ThreadGrid.cpp:72-133)."""
-        res = occupancy_grid_jit(
-            grid,
-            use_inflation=self.config.use_object_inflation,
-            inflation_factor=self.config.object_inflation_factor)
-        # origin as in the ThreadGrid ctor (ThreadGrid.cpp:36-38)
-        occ = OccupancyGridMsg(
-            data=res.occupancy.cpu().numpy(),
-            resolution=grid.cell_size,
-            origin_x=-(grid.cells_x * grid.cell_size * 0.5 + self.x_offset),
-            origin_y=-(grid.cells_y * grid.cell_size * 0.5 + self.y_offset),
-            stamp=stamp,
-        )
+        """One ThreadGrid cycle (ThreadGrid.cpp:72-133); with the span
+        recorder on, the spans `occupancy` and `image`, each with its
+        read-back."""
+        with spans.span("occupancy"):
+            res = occupancy_grid_jit(
+                grid,
+                use_inflation=self.config.use_object_inflation,
+                inflation_factor=self.config.object_inflation_factor)
+            # origin as in the ThreadGrid ctor (ThreadGrid.cpp:36-38)
+            occ = OccupancyGridMsg(
+                data=res.occupancy.cpu().numpy(),
+                resolution=grid.cell_size,
+                origin_x=-(grid.cells_x * grid.cell_size * 0.5
+                           + self.x_offset),
+                origin_y=-(grid.cells_y * grid.cell_size * 0.5
+                           + self.y_offset),
+                stamp=stamp,
+            )
         img = None
         if self.config.pub_tsd_color_map:
-            img = ImageMsg(data=grid_to_color_image_jit(grid).cpu().numpy(),
-                           stamp=stamp)
+            with spans.span("image"):
+                img = ImageMsg(
+                    data=grid_to_color_image_jit(grid).cpu().numpy(),
+                    stamp=stamp)
         self.last_map = occ
         self.last_image = img
         return occ, img

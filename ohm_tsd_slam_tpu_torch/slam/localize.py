@@ -291,7 +291,8 @@ def _step(grid: TsdGrid, pose: torch.Tensor, last_pose: torch.Tensor,
                          bind_cache(segments, grid, stale))
 
 
-_step_graph = compiled(_step, static_argnames=("params", "stale"))
+_step_graph = compiled(_step, static_argnames=("params", "stale"),
+                       name="localize_step_jit")
 
 
 def localize_step_jit(grid: TsdGrid, pose: torch.Tensor,

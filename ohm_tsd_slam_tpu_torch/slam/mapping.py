@@ -15,6 +15,7 @@ from typing import Callable
 from ohm_tsd_slam_tpu_torch.grid.push import push
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
+from ohm_tsd_slam_tpu_torch.utils import spans
 
 INIT_PSHS = 1  # initial pushes on first scan (SlamNode.h:30)
 
@@ -36,7 +37,7 @@ class Mapper:
         """ThreadMapping::initPush (ThreadMapping.cpp:32-41): push the
         first sensor INIT_PSHS times synchronously."""
         for _ in range(INIT_PSHS):
-            grid = self._push_fn(grid, geom, pose, data, mask)
+            grid = self._push(grid, geom, pose, data, mask)
         self._initialized = True
         return grid
 
@@ -58,4 +59,12 @@ class Mapper:
                 if not self._queue:
                     return grid
                 geom, pose, data, mask = self._queue.pop()
-            grid = self._push_fn(grid, geom, pose, data, mask)
+            grid = self._push(grid, geom, pose, data, mask)
+
+    def _push(self, grid: TsdGrid, geom: SensorPolar2D, pose, data,
+              mask) -> TsdGrid:
+        """One push: a span `push` and the counter `pushes` with the span
+        recorder on (utils/spans.py)."""
+        spans.count("pushes")
+        with spans.span("push"):
+            return self._push_fn(grid, geom, pose, data, mask)

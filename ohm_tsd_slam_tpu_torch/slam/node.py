@@ -88,6 +88,7 @@ from ohm_tsd_slam_tpu_torch.slam.messages import (
     pack_scan,
     unpack_scan,
 )
+from ohm_tsd_slam_tpu_torch.utils import spans
 from ohm_tsd_slam_tpu_torch.utils.device import default_device
 
 
@@ -177,9 +178,13 @@ class SlamNode:
         # tf broadcast sink (map->odom correction, sendTransform
         # ThreadLocalize.cpp:604-689 / sendNanTransform :691-713)
         self.tf_callbacks: List[Callable[[int, Transform2D], None]] = []
-        # the fast caster's per-grid-version isocontour cache
+        # the fast caster's per-grid-version isocontour cache, and whether
+        # its segments are yet to be counted (utils/spans.py)
         self._seg_lock = threading.Lock()
         self._segments: Optional[SegmentCache] = None
+        self._seg_new = False
+        # the segment counts a robot without a cache reads (mode GN)
+        self._zero = torch.zeros((), dtype=torch.int64, device=self.device)
 
     def _segments_for(self, grid) -> SegmentCache:
         """extract_segments_jit() of `grid`, memoized on the field it
@@ -190,6 +195,7 @@ class SlamNode:
             if seg is None or is_stale(seg, grid):
                 seg = extract_segments_jit(grid)
                 self._segments = seg
+                self._seg_new = True
             return seg
 
     @staticmethod
@@ -298,22 +304,43 @@ class SlamNode:
                      drain_mapper: bool = True) -> Optional[PoseStamped]:
         """Run one localization cycle for `robot`; returns the published
         pose (NaN sentinel on registration failure, ThreadLocalize
-        :381-387), or None before initialization / while stopped."""
+        :381-387), or None before initialization / while stopped.
+
+        With the span recorder on (utils/spans.py) the cycle is a span
+        `process_scan` of trace (robot, scan counter; -1 for the scan
+        that starts the robot) with the children `preprocess`,
+        `segments`, `localize_step_jit`, `read_gates`, `read_pose`,
+        `map_update` and `callbacks`, and counts `icp_iterations_run`,
+        `icp_iterations_useful`, `grid_versions`, `segments`,
+        `segments_dropped` and `scans_overflowed` from the values the
+        gates' read brings back anyway."""
         if not self._active:
             return None
         loc = self.localizers[robot]
+        if not spans.enabled():
+            return self._process_scan(robot, loc, scan, drain_mapper)
+        count = loc.scan_count if loc.initialized else -1
+        with spans.span("process_scan", trace=(robot, count), robot=robot,
+                        scan=count):
+            return self._process_scan(robot, loc, scan, drain_mapper)
+
+    def _process_scan(self, robot: int, loc: Localizer, scan: LaserScan,
+                      drain_mapper: bool) -> Optional[PoseStamped]:
         ranges = np.asarray(scan.ranges, dtype=np.float64)
         if not loc.initialized:
             self._init_localizer(loc, scan)
             return None
-        if loc.reverse_scan:
-            ranges = ranges[::-1].copy()
 
-        data, mask = self._preprocess(loc, ranges)
+        with spans.span("preprocess"):
+            if loc.reverse_scan:
+                ranges = ranges[::-1].copy()
+            data, mask = self._preprocess(loc, ranges)
         with self._grid_lock:
             grid = self.grid
         params = loc.params
-        seg = self._segments_for(grid) if self._needs_segments(loc) else None
+        with spans.span("segments"):
+            seg = (self._segments_for(grid) if self._needs_segments(loc)
+                   else None)
         count = loc.scan_count
         loc.scan_count += 1
         odom_state = self._odom_update(loc, scan.stamp)
@@ -321,9 +348,18 @@ class SlamNode:
                                 params, generator=self._draws(robot, count),
                                 odom_state=odom_state, segments=seg)
 
-        reg_error, significant, n_over = torch.stack(
-            [res.reg_error.to(torch.int64), res.significant.to(torch.int64),
-             res.rays_dropped.to(torch.int64)]).tolist()
+        with spans.span("read_gates"):
+            (reg_error, significant, n_over, icp_iterations, n_segments,
+             n_seg_dropped) = torch.stack(
+                [res.reg_error.to(torch.int64),
+                 res.significant.to(torch.int64),
+                 res.rays_dropped.to(torch.int64),
+                 res.icp_iterations.to(torch.int64),
+                 self._zero if seg is None else seg.count.to(torch.int64),
+                 self._zero if seg is None else seg.n_dropped]).tolist()
+        if spans.enabled():
+            self._count_scan(params, seg, n_over, icp_iterations,
+                             n_segments, n_seg_dropped)
         if n_over > 0:
             # fast-raycast capacity overflow: the guarded exact march
             # re-rendered the scan inside the step (no beams lost) — log
@@ -338,22 +374,42 @@ class SlamNode:
                                    stamp=scan.stamp)
         else:
             loc.pose = res.pose
-            T = res.pose.cpu()
-            pose_msg = PoseStamped(
-                x=float(T[0, 2]) + loc.grid_offset_x,
-                y=float(T[1, 2]) + loc.grid_offset_y,
-                theta=float(calc_angle_02pi(T)),
-                stamp=scan.stamp)
+            with spans.span("read_pose"):
+                T = res.pose.cpu()
+                pose_msg = PoseStamped(
+                    x=float(T[0, 2]) + loc.grid_offset_x,
+                    y=float(T[1, 2]) + loc.grid_offset_y,
+                    theta=float(calc_angle_02pi(T)),
+                    stamp=scan.stamp)
             if significant:
                 loc.last_pose = res.pose
                 self.mapper.queue_push(loc.geom, res.pose, data, mask)
                 if drain_mapper:
                     self._drain_mapper()
         loc.last_result = pose_msg
-        for cb in self.pose_callbacks:
-            cb(robot, pose_msg)
-        self._broadcast_tf(robot, loc, pose_msg, scan.stamp)
+        with spans.span("callbacks"):
+            for cb in self.pose_callbacks:
+                cb(robot, pose_msg)
+            self._broadcast_tf(robot, loc, pose_msg, scan.stamp)
         return pose_msg
+
+    def _count_scan(self, params: LocalizeParams, seg, n_over: int,
+                    icp_iterations: int, n_segments: int,
+                    n_seg_dropped: int) -> None:
+        """A scan's counters (utils/spans.py).  ICP runs all its
+        iterations in every mode but GN, which runs none; a grid
+        version's segments count once, on the first scan that renders
+        with them."""
+        if params.mode != int(RegMode.GN):
+            spans.count("icp_iterations_run", params.icp.iterations)
+            spans.count("icp_iterations_useful", icp_iterations)
+        if seg is not None and self._seg_new:
+            self._seg_new = False
+            spans.count("grid_versions")
+            spans.count("segments", n_segments)
+            spans.count("segments_dropped", n_seg_dropped)
+        if n_over > 0:
+            spans.count("scans_overflowed")
 
     def _odom_update(self, loc: Localizer,
                      stamp: float) -> Optional[odometry.OdomState]:
@@ -421,20 +477,27 @@ class SlamNode:
             cb(robot, tf)
 
     def _drain_mapper(self) -> None:
-        with self._write_lock:
-            with self._grid_lock:
-                grid = self.grid
-            grid = self.mapper.drain(grid)
-            with self._grid_lock:
-                self.grid = grid
-            if self._segments is not None:    # the fast caster is in use
-                self._segments_for(grid)
+        """The queued pushes and the new grid's extraction: with the span
+        recorder on, a span `map_update` (a `push` a queued scan) and a
+        device interval of the same name around it."""
+        with spans.span("map_update"), spans.device_interval("map_update",
+                                                             self.device):
+            with self._write_lock:
+                with self._grid_lock:
+                    grid = self.grid
+                grid = self.mapper.drain(grid)
+                with self._grid_lock:
+                    self.grid = grid
+                if self._segments is not None:  # the fast caster is in use
+                    self._segments_for(grid)
 
     def publish_map(self, stamp: float = 0.0):
-        """ThreadGrid cycle on the current grid state."""
-        with self._grid_lock:
-            grid = self.grid
-        return self.grid_pub.publish(grid, stamp)
+        """ThreadGrid cycle on the current grid state (a span
+        `publish_map` with the recorder on)."""
+        with spans.span("publish_map"):
+            with self._grid_lock:
+                grid = self.grid
+            return self.grid_pub.publish(grid, stamp)
 
     # ------------------------------------------------------------------
     # threaded runtime (replicates the reference's lossy behavior)

@@ -71,6 +71,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from ohm_tsd_slam_tpu_torch.utils import spans
+
 _capture_lock = threading.Lock()
 # `.warming`: this thread runs the warm-up call of a capture; `.capture`:
 # the _Graph this thread is capturing (see `when`)
@@ -269,22 +271,32 @@ class _Graph:
             stream = torch.cuda.current_stream(device)
             if self.done is not None:
                 stream.wait_event(self.done)
-            for i in self.tensors:
-                leaf, src = leaves[i], self.source.get(i)
-                if (i in self.written or src is None or src[0]() is not leaf
-                        or src[1] != leaf._version):
-                    self.static[i].copy_(leaf.detach())
-                    self.source[i] = (weakref.ref(leaf), leaf._version)
-            for i, g in self.gens:
-                g.set_state(leaves[i].get_state())
-            self.graph.replay()
-            for i, g in self.gens:
-                leaves[i].set_state(g.get_state())
-            outs = [o.clone() if isinstance(o, torch.Tensor) else o
-                    for o in self.out_leaves]
-            if self.done is None:
-                self.done = torch.cuda.Event()
-            self.done.record(stream)
+            with spans.span("copy_in") as s:
+                copied = nbytes = 0
+                for i in self.tensors:
+                    leaf, src = leaves[i], self.source.get(i)
+                    if (i in self.written or src is None
+                            or src[0]() is not leaf
+                            or src[1] != leaf._version):
+                        self.static[i].copy_(leaf.detach())
+                        self.source[i] = (weakref.ref(leaf), leaf._version)
+                        copied += 1
+                        nbytes += leaf.nbytes
+                for i, g in self.gens:
+                    g.set_state(leaves[i].get_state())
+                if s is not None:
+                    s.attrs.update(buffers=copied, bytes=nbytes)
+            with spans.span("replay"), spans.device_interval("replay",
+                                                             device):
+                self.graph.replay()
+            with spans.span("clone_out"):
+                for i, g in self.gens:
+                    leaves[i].set_state(g.get_state())
+                outs = [o.clone() if isinstance(o, torch.Tensor) else o
+                        for o in self.out_leaves]
+                if self.done is None:
+                    self.done = torch.cuda.Event()
+                self.done.record(stream)
         return unflatten(self.out_spec, outs)
 
 
@@ -296,11 +308,15 @@ class Compiled:
     """fn, captured per key into a CUDA graph on the card and run eagerly
     on the CPU (see the module docstring).  `captures` counts the graphs
     built, `replays` the calls served by one, `capture_s` lists each
-    capture's seconds (warm-up included)."""
+    capture's seconds (warm-up included).  With the span recorder on
+    (utils/spans.py) each call records a span named `name`, and each
+    capture counts into its counter `captures`."""
 
-    def __init__(self, fn: Callable, static_argnames: Iterable[str] = ()):
+    def __init__(self, fn: Callable, static_argnames: Iterable[str] = (),
+                 name: Optional[str] = None):
         functools.update_wrapper(self, fn)
         self.fn = fn
+        self.name = name or fn.__name__
         self.signature = inspect.signature(fn)
         self.static_argnames = tuple(static_argnames)
         for name in self.static_argnames:
@@ -333,22 +349,51 @@ class Compiled:
         return (static, spec), leaves
 
     def __call__(self, *args, **kwargs):
+        if spans.enabled():
+            return self._traced(args, kwargs)
         key, leaves = self.key(*args, **kwargs)
         device = cuda_device(leaves)
         if device is None:
             return self.fn(*args, **kwargs)
+        graph = self._graph(key, leaves, device)
+        self.replays += 1
+        return graph(leaves, device)
+
+    def _traced(self, args: tuple, kwargs: dict):
+        """A call with the span recorder on (utils/spans.py): a span named
+        `self.name`; on the card with the children `key`, `capture` (on
+        a new key), `copy_in`, `replay` (and its device interval) and
+        `clone_out`; on the CPU with the attr `eager` and no children."""
+        with spans.span(self.name) as top:
+            t0 = time.time_ns()
+            key, leaves = self.key(*args, **kwargs)
+            device = cuda_device(leaves)
+            if device is None:
+                if top is not None:
+                    top.attrs["eager"] = True
+                return self.fn(*args, **kwargs)
+            spans.add("key", t0)
+            graph = self._graph(key, leaves, device)
+            self.replays += 1
+            return graph(leaves, device)
+
+    def _graph(self, key, leaves: list, device: torch.device) -> _Graph:
+        """The graph of `key`, captured now where there is none."""
         graph = self._graphs.get(key)
         if graph is None:
             with _capture_lock:
                 graph = self._graphs.get(key)
                 if graph is None:
-                    graph = _Graph(functools.partial(self._call, key[0]),
-                                   key[1], leaves, device)
+                    with spans.span("capture") as s:
+                        graph = _Graph(functools.partial(self._call, key[0]),
+                                       key[1], leaves, device)
+                        if s is not None:
+                            s.attrs["capture_s"] = graph.capture_s
+                    spans.count("captures")
                     self._graphs[key] = graph
                     self.captures += 1
                     self.capture_s.append(graph.capture_s)
-        self.replays += 1
-        return graph(leaves, device)
+        return graph
 
     def _call(self, static, dynamic: dict):
         return self.fn(**dynamic, **dict(static))
@@ -365,7 +410,9 @@ class Compiled:
             self._graphs.clear()
 
 
-def compiled(fn: Callable, static_argnames: Iterable[str] = ()) -> Compiled:
+def compiled(fn: Callable, static_argnames: Iterable[str] = (),
+             name: Optional[str] = None) -> Compiled:
     """`jax.jit(fn, static_argnames=...)` for the port: see the module
-    docstring."""
-    return Compiled(fn, static_argnames)
+    docstring.  `name` (fn's by default) names the calls' spans: the
+    public entry point that calls it."""
+    return Compiled(fn, static_argnames, name)
