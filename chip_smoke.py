@@ -7,11 +7,12 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 
 1. device: requires torch.cuda; prints the card's name and power limit;
 2. build: deletes and recompiles every CUDA kernel of the main paths from
-   csrc/ (six libraries, one nvcc process each, all started together, and
-   the conditional nodes' setter of utils/compiled.py::when, glue), and
-   prints ptxas's registers and stack frame of the push, window replay,
-   candidate sweep, row pack and channel compaction kernels (none may have
-   a stack frame or spill);
+   csrc/ (seven libraries, ICP's pair assignment among them, one nvcc
+   process each, all started together, and the conditional nodes' setter
+   of utils/compiled.py::when, glue), and prints ptxas's registers and
+   stack frame of the push, window replay, candidate sweep, row pack,
+   channel compaction and pair assignment kernels (none may have a stack
+   frame or spill);
 3. kernel check: the push kernel against the plain push, both float32 on
    the card, at 1024^2 / 0.025 m / 1081 beams (three poses into one grid,
    a sensor outside the grid, an all-masked scan), its per-tile cull
@@ -59,6 +60,11 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    b. general extraction: SlamNode at map_size 6 (64 cells a row, narrower
       than kernels A and B take), ICP mode: kernel E once per grid
       version, A and B never;
+   a-c. ICP's pair assignment (csrc/assign_pairs.cu) on every ICP
+      iteration of the ICP path and of the TSD, EXP and PDF paths: the
+      kernel's idx, dist2, pair_mask and paired equal to its twin
+      assign_pairs_plain's in every bit (AssignCheck), one wrapper launch
+      an iteration;
    c. TSD mode, the reference's shipped default: SlamNode with
       configs/single-laser.yaml's settings (match_tsd seed, then ICP), 60
       scans, twice from one seed (the pose traces must be equal bit for
@@ -167,7 +173,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    and of each matcher; the modes GN and AMCL, the render's forward and
    backward, TwinPoint and multi-init are timed too, and at the batch's
    shape raycast_fast_batch (wrapper, device, rays a second), C, D and the
-   rounds against their twins, and the multi-robot step; process_scan and
+   rounds against their twins, and the multi-robot step; ICP's pair
+   assignment (wrapper and device time) against its twin on the ICP
+   path's last iteration; process_scan and
    localize_step, eager against compiled, on the ICP and TSD paths, with
    the scan period's 25 ms stated as met or not, after a check that the
    compiled step and extraction replay with no host sync, and the device
@@ -1052,6 +1060,98 @@ def icp_record_check(calls: list, label: str) -> dict:
           + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
           + f" [{label}]")
     return fns
+
+
+class AssignCheck:
+    """Stands in for registration/icp.py's assign_pairs_fused on a path
+    (install() puts it there and returns the function that puts the
+    original back): runs the kernel (assign_pairs_fused on the card), then
+    its plain twin assign_pairs_plain on the same inputs, and asserts the
+    four outputs (idx, dist2, pair_mask, paired) equal in every bit.  Counts
+    the calls and the pairs checked and keeps the last call's arguments
+    (assign_times times the kernel on them)."""
+
+    def __init__(self):
+        self.calls = self.pairs = 0
+        self.last = None
+
+    def __call__(self, *args, **kwargs):
+        from ohm_tsd_slam_tpu_torch.registration import nn
+
+        got = nn.assign_pairs_fused(*args, **kwargs)
+        want = nn.assign_pairs_plain(*args, **kwargs)
+        for name, a, b in zip(("idx", "dist2", "pair_mask", "paired"), got,
+                              want):
+            assert bits_equal(a, b), (self.calls, name)
+        self.calls += 1
+        self.pairs += int(got[2].sum())
+        self.last = (args, kwargs)
+        return got
+
+    def install(self):
+        import importlib
+
+        # (the package's `icp` is the function, not the module)
+        icp_mod = importlib.import_module(
+            "ohm_tsd_slam_tpu_torch.registration.icp")
+        orig = icp_mod.assign_pairs_fused
+        icp_mod.assign_pairs_fused = self
+        return lambda: setattr(icp_mod, "assign_pairs_fused", orig)
+
+
+def checked_assignments(path: str, label: str, run, *args) -> dict:
+    """run(*args) with AssignCheck standing in for ICP's assignment and
+    the icp calls kept: every assignment of the path equal to the twin's
+    in every bit, and one wrapper launch an ICP iteration.  Returns run's
+    result, the check and the launches."""
+    from ohm_tsd_slam_tpu_torch.ops.assign_pairs_cuda import assign_pairs
+
+    check, icp_calls = AssignCheck(), []
+    restore_check = check.install()
+    restore_icp = keep_icp_calls(icp_calls)
+    n0 = assign_pairs.launches
+    try:
+        out = run(*args)
+    finally:
+        restore_icp()
+        restore_check()
+    launches = assign_pairs.launches - n0
+    iterations = sum(a[4].iterations for a, _, _ in icp_calls)
+    print(f"kernel check assign_pairs, {path}: {check.calls} assignments "
+          f"of {len(icp_calls)} icp calls equal to assign_pairs_plain's in "
+          f"every bit of idx, dist2, pair_mask and paired ({check.pairs} "
+          f"pairs kept); {launches} wrapper launches [{label}]")
+    assert icp_calls and launches == check.calls == iterations, \
+        (path, launches, check.calls, iterations)
+    return {"out": out, "check": check, "launches": launches}
+
+
+def assign_times(check: AssignCheck, label: str) -> tuple:
+    """The assignment kernel against its twin on the last checked call's
+    inputs (an ICP iteration of the path: 1081 scene and model points):
+    the wrapper and the twin between CUDA events, and each one's device
+    work replayed from a CUDA graph.  Returns the times and the facts
+    kernel_bounds counts from."""
+    from ohm_tsd_slam_tpu_torch.ops.assign_pairs_cuda import assign_pairs
+    from ohm_tsd_slam_tpu_torch.registration.nn import assign_pairs_plain
+
+    args, kwargs = check.last
+    model, scene, payload = args[0], args[2], args[4]
+    assert scene.dtype == torch.float32 and scene.shape == (BEAMS, 2)
+    tag = (f"S={scene.shape[0]}, M={model.shape[0]}, K={payload.shape[1]}"
+           f", gate {'on' if kwargs.get('thresh2') is not None else 'off'}"
+           f", reciprocal {'on' if kwargs.get('use_reciprocal') else 'off'}")
+    t = {f"assign_pairs kernel ({tag})":
+         time_cuda(lambda: assign_pairs(*args, **kwargs)),
+         f"assign_pairs device time ({tag}: replayed from a CUDA graph)":
+         time_device(lambda: assign_pairs(*args, **kwargs)),
+         f"assign_pairs plain ({tag})":
+         time_cuda(lambda: assign_pairs_plain(*args, **kwargs)),
+         f"assign_pairs plain device time ({tag}: replayed from a CUDA "
+         f"graph)": time_device(lambda: assign_pairs_plain(*args, **kwargs))}
+    facts = {"assign_S": scene.shape[0], "assign_M": model.shape[0],
+             "assign_K": payload.shape[1]}
+    return report_times(t, label), facts
 
 
 def main_grid_check(node, total: dict) -> dict:
@@ -4577,6 +4677,14 @@ def kernel_bounds(facts: dict) -> dict:
                              facts["narrow_lanes"]),
         "compact_channels_large": (facts["lanes"] + segs * 16 + 5 * cap * 4,
                                    facts["lanes"]),
+        # ICP's assignment, one iteration: the clouds, masks and payload
+        # read once, idx, dist2, the mask and the paired rows written; ~10
+        # operations a scene-model pair (two products, four sums, the
+        # clamp, the mask, the compare)
+        "assign_pairs": (facts["assign_M"] * (8 + 1 + 4 * facts["assign_K"])
+                         + facts["assign_S"] * (8 + 1 + 4 + 4 + 1
+                                                + 4 * facts["assign_K"]),
+                         facts["assign_S"] * facts["assign_M"] * 10),
         # the same three at the batch's shape (P = 128 folded into the
         # beams; one translation row a pose instead of one a scan)
         "segment_min_batch": (segs * 32 + nb * 20 + nb * 4 * 4
@@ -4623,10 +4731,11 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # 2. build (from the sources in this checkout, never a cached library)
-    # the kernels, and the conditional nodes' setter of utils/compiled.py
-    # (glue: no TPU kernel)
+    # the kernels (ICP's pair assignment among them: no TPU kernel), and
+    # the conditional nodes' setter of utils/compiled.py (glue: no TPU
+    # kernel)
     names = (["push"] + [name for name, _, _ in CASTER if name not in SOURCE]
-             + ["graph_cond"])
+             + ["assign_pairs", "graph_cond"])
     for name in names:
         if os.path.exists(_build.lib_path(name)):
             os.remove(_build.lib_path(name))
@@ -4637,7 +4746,7 @@ def main() -> int:
     print(f"build {len(names)} sources in csrc/ with nvcc, in parallel: "
           f"{time.perf_counter() - t0:.2f} s")
     for name in ("push", "window_replay", "segment_min", "pack_rows",
-                 "compact_channels"):
+                 "compact_channels", "assign_pairs"):
         frames = []
         for line in _build.resource_usage(name):
             if ("Used" in line or "Function properties" in line
@@ -4669,10 +4778,13 @@ def main() -> int:
 
     # 4a. the ICP-mode path, then the caster's kernels on the grid it
     # built, then its icp calls again with the histories on
+    # (every ICP assignment of the path held against its twin)
     icp_calls = []
     restore_icp = keep_icp_calls(icp_calls)
     try:
-        node, launches, icp_run = main_path(dev, label, push_check)
+        icp_assign = checked_assignments("ICP path", label, main_path, dev,
+                                         label, push_check)
+        node, launches, icp_run = icp_assign["out"]
     finally:
         restore_icp()
     icp_fns = icp_record_check(icp_calls, label)
@@ -4687,7 +4799,9 @@ def main() -> int:
     # 4b. the general-extraction path; 4c. TSD, then EXP and PDF
     narrow, narrow_run = narrow_path(dev, label, caster_stats, push_check)
     narrow_launches = narrow_run["launches"]
-    tsd_node, tsd_run = ransac_paths(dev, label, push_check)
+    tsd_assign = checked_assignments("TSD, EXP and PDF paths", label,
+                                     ransac_paths, dev, label, push_check)
+    tsd_node, tsd_run = tsd_assign["out"]
     tsd_launches = tsd_run["launches"]
     lap("4b, 4c eager paths")
     # 4c'. the ICP, general-extraction and TSD paths again on the compiled
@@ -4750,6 +4864,9 @@ def main() -> int:
 
     # 5. times
     times, facts = stage_times(node, label)
+    more, more_facts = assign_times(icp_assign["check"], label)
+    times.update(more)
+    facts.update(more_facts)
     more, more_facts = ransac_times(tsd_node, narrow, label)
     times.update(more)
     more, steps = slice_times(gn_node, amcl_node, node, twin_fns, label)
@@ -4920,6 +5037,27 @@ def main() -> int:
         kernels.append(entry(SOURCE.get(name, name), fn, replaces, key,
                              count, caster_stats[name]["max_abs_err"], name,
                              library, **extra))
+    # ICP's pair assignment: no TPU kernel (the JAX package leaves it to
+    # XLA); its wrapper holds nothing but its results, so its launch alone
+    # is the wrapper
+    key = next(k for k in times if k.startswith("assign_pairs kernel ("))
+    kernels.append({
+        "name": "assign_pairs_f32", "route": "cuda",
+        "source": "ohm_tsd_slam_tpu_torch/csrc/assign_pairs.cu",
+        "replaces": "none (the port's own kernel: the JAX package leaves "
+                    "registration/nn.py::assign_pairs_fused to XLA)",
+        "launches": icp_assign["launches"],
+        "launches_tsd_exp_pdf_paths": tsd_assign["launches"],
+        # every output equal to the twin's in every bit (AssignCheck)
+        "max_abs_err": 0.0, "ms": times[key],
+        "plain_ms": times[key.replace(" kernel", " plain")],
+        "bound_ms": bounds["assign_pairs"][0],
+        "bound_by": bounds["assign_pairs"][1], "library_ms": None,
+        "kernel_ms": times[key],
+        "device_ms": next(times[k] for k in times
+                          if k.startswith("assign_pairs device time")),
+        "plain_device_ms": next(times[k] for k in times if k.startswith(
+            "assign_pairs plain device time"))})
     for k in kernels:
         assert k["launches"] > 0, k
         # the bound is held against the device's share where that was

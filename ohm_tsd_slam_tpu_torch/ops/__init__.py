@@ -7,9 +7,12 @@ row pack and the channel compaction share).  kernel_check holds each
 against its plain twin, the push kernel's per-tile cull included.
 graph_cond_cuda wraps csrc/graph_cond.cu, no kernel of the JAX package:
 the conditional (IF) nodes that utils/compiled.py::when puts in a
-captured graph.
+captured graph.  assign_pairs_cuda wraps csrc/assign_pairs.cu, no kernel
+of the JAX package either: ICP's pair assignment, whose twin is
+registration/nn.py::assign_pairs_plain.
 
-The plain torch functions in grid/ are each kernel's reference and its
-CPU path.  No module here imports a compiler or builds a kernel at import
-time: ops/_build.py compiles csrc/*.cu at a kernel's first launch.
+The plain torch functions in grid/ (and registration/nn.py) are each
+kernel's reference and its CPU path.  No module here imports a compiler
+or builds a kernel at import time: ops/_build.py compiles csrc/*.cu at a
+kernel's first launch.
 """

@@ -62,6 +62,19 @@ def release(device: torch.device, pool, uses: int) -> None:
         torch._C._cuda_releasePool(device.index, pool)
 
 
+def _idle_stream(dev: torch.device) -> torch.cuda.Stream:
+    """A stream of torch's pool that is not capturing.  The pool hands out
+    its 32 streams in turn, and torch.cuda.graph captures on one of them,
+    so a stream taken at random can be the capture's own (beginning a
+    body's capture on it fails with cudaErrorIllegalState)."""
+    for _ in range(64):
+        side = torch.cuda.Stream(dev)
+        with torch.cuda.stream(side):
+            if not torch.cuda.is_current_stream_capturing():
+                return side
+    raise RuntimeError("if_body: every stream of the pool is capturing")
+
+
 @contextlib.contextmanager
 def if_body(pred: torch.Tensor, pool):
     """The work captured inside runs on a replay only where `pred`, a
@@ -76,7 +89,7 @@ def if_body(pred: torch.Tensor, pool):
     _check(lib.graph_if_begin(torch.cuda.current_stream(dev).cuda_stream,
                               pred.data_ptr(), ctypes.byref(body)),
            "graph_if_begin")
-    side = torch.cuda.Stream(dev)
+    side = _idle_stream(dev)
     with torch.cuda.stream(side):
         torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, pool)
         try:

@@ -1,6 +1,7 @@
 """Pair assignment (port of ohm_tsd_slam_tpu/registration/nn.py):
-brute-force nearest neighbours (nearest_neighbors, assign_pairs_fused)
-and projective association of 3D clouds (projective_pairs_3d).
+brute-force nearest neighbours (nearest_neighbors, assign_pairs_fused and
+its plain twin assign_pairs_plain) and projective association of 3D
+clouds (projective_pairs_3d).
 
 At scan sizes (~1081 points) an exact dense [S, M] distance matrix is the
 fast path; invalid points are excluded by +inf masking, not compaction.
@@ -41,6 +42,21 @@ def nearest_neighbors(model: torch.Tensor, model_mask: torch.Tensor,
 
 
 def assign_pairs_fused(model: torch.Tensor, model_mask: torch.Tensor,
+                       scene: torch.Tensor, scene_mask: torch.Tensor,
+                       payload: torch.Tensor, thresh2=None,
+                       use_reciprocal: bool = True):
+    """One fused ICP pair assignment (see assign_pairs_plain): on CUDA
+    tensors the kernel of csrc/assign_pairs.cu (ops/assign_pairs_cuda.py),
+    equal to assign_pairs_plain on the card in every bit; on the CPU
+    assign_pairs_plain.  thresh2 is None, a number or a one-element tensor
+    (read on the device, so a graph replays each iteration's own gate)."""
+    from ohm_tsd_slam_tpu_torch.ops.assign_pairs_cuda import assign_pairs
+
+    return assign_pairs(model, model_mask, scene, scene_mask, payload,
+                        thresh2, use_reciprocal)
+
+
+def assign_pairs_plain(model: torch.Tensor, model_mask: torch.Tensor,
                        scene: torch.Tensor, scene_mask: torch.Tensor,
                        payload: torch.Tensor, thresh2=None,
                        use_reciprocal: bool = True):

@@ -28,6 +28,8 @@ Asserted, on a float32 room (map_size 8, 0.04 m cells, 361 beams):
     with no new capture and no eager step;
   * the kernel wrappers count the calls that launch: the warm-up and the
     capture call them, a replay calls none;
+  * a conditional node's body is captured whichever stream torch's pool
+    hands out next (one of its 32 is the capture's own);
   * the threaded runtime (SlamNode.start()) with two robots on the
     compiled step, the graphs captured while the other threads run: no
     thread raises, no ray is dropped, both robots track.
@@ -73,7 +75,7 @@ from ohm_tsd_slam_tpu_torch.slam.localize import (
     localize_step_jit,
 )
 from ohm_tsd_slam_tpu_torch.slam.messages import LaserScan
-from ohm_tsd_slam_tpu_torch.utils.compiled import compiled
+from ohm_tsd_slam_tpu_torch.utils.compiled import compiled, when
 from ohm_tsd_slam_tpu_torch.utils.testing import (
     limit_cpu_threads,
     rect_walls,
@@ -498,3 +500,21 @@ def test_threaded_runtime_on_the_compiled_step(cuda_device):
         err = math.hypot(float(pose[0, 2]) - (5.12 + 0.03 * (SCANS - 1)),
                          float(pose[1, 2]) - (5.12 + dy))
         assert err < 2.5 * CFG.cellsize, err
+
+
+@pytest.mark.cuda
+def test_a_conditional_body_never_takes_the_capture_stream(cuda_device):
+    """torch's pool hands out its 32 streams in turn and torch.cuda.graph
+    captures on one of them: whichever stream the pool would hand the IF
+    node's body next, the capture succeeds and replays both branches."""
+    def f(x):
+        y = x + 1.0
+        return when(x.sum() > 0, lambda: y * 2.0, y)
+
+    pos = torch.arange(4.0, device=cuda_device)
+    for skip in range(33):
+        _ = [torch.cuda.Stream(cuda_device) for _ in range(skip)]
+        g = compiled(f)
+        assert torch.equal(g(pos), (pos + 1.0) * 2.0), skip
+        assert torch.equal(g(-pos - 1.0), -pos), skip
+        assert g.captures == 1, skip
