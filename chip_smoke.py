@@ -73,7 +73,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       paths again on the same scans through SlamNode on localize_step_jit
       and extract_segments_jit (CUDA graphs captured when each localizer
       starts), every call of the step held against the eager step on the
-      same inputs in all nine fields, bit for bit (the draws included),
+      same inputs in all ten fields, bit for bit (the draws included),
       the pose traces equal to the eager paths' in every bit; then the
       threaded runtime (threaded_path: SlamNode.start(), the double
       laser's two robots fed at 40 Hz, the graphs captured while the other
@@ -84,13 +84,26 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
       robot, on the compiled step with raycast_fast.MAX_SEGMENTS forced
       just above the first grid's segments (the first scans fit, the
       growing map overflows): every call equal to the eager step in all
-      nine fields and, where it overflowed, to the exact march's step in
+      ten fields and, where it overflowed, to the exact march's step in
       every bit; one graph a robot for both kinds of scan; the node as
       it is reads the card twice a scan, runs no eager step and captures
       nothing; process_scan timed on both kinds of scan;
       raycast_checked_jit and render_ranges_jit (with gradients) on its
       grid against the eager calls and the exact march; the one-card
       multi-robot step over a capacity below its grid's segments;
+   c'''. the site (site_path): configs/double-laser.yaml's settings at
+      map_size 12 (slambench's double-laser-site: 4096^2 cells, 102.4 m,
+      a segment capacity of 16 x MAX_SEGMENTS, the reach cull before
+      kernel C), eager: 35 copies of the room over the grid, 34 of them
+      mapped by a push from their own start, then the ICP path's first
+      10 scans a robot in the middle copy and publish_map; more than
+      MAX_SEGMENTS segments, none dropped; every call of A, B, C, D, the
+      rounds and E (the cull's compaction) equal to its twin in every
+      bit, every push equal to the plain push in every cell; the launch
+      counts from this path alone (E, C, D and the rounds once a scan);
+      then, from each robot's last pose, the render on the culled pack
+      equal to the whole pack's in every bit, and both timed beside the
+      cull, E and C alone (site_cull_times);
    d. the same settings in mode GN (30 scans straight ahead; the push is
       its only kernel: no render, no extraction), in mode AMCL (20 scans
       and a 0.35 m / 0.35 m kidnap it must recover from within 3 cells,
@@ -1416,7 +1429,7 @@ class StepCheck:
     """Stands in for slam/node.py's localize_step_jit in compiled_path:
     runs the compiled step (a graph replay), then the eager localize_step
     on the same inputs with a generator of the same state, and holds all
-    nine fields of the two results, and the generator's state after, in
+    ten fields of the two results, and the generator's state after, in
     every bit."""
 
     def __init__(self):
@@ -1843,10 +1856,10 @@ def overflow_capacity(dev, cfg, scans) -> int:
 
 class GuardCheck(StepCheck):
     """StepCheck in overflow_path: the compiled step against the eager
-    step (its guard branching on the host) in all nine fields; where the
+    step (its guard branching on the host) in all ten fields; where the
     fast caster overflowed, also against the eager step with the exact
-    march on the same draws, in the eight fields but rays_dropped (the
-    exact march drops nothing)."""
+    march on the same draws, in every field but rays_dropped and
+    segments_swept (the exact march drops and sweeps nothing)."""
 
     def __init__(self):
         super().__init__()
@@ -1867,11 +1880,13 @@ class GuardCheck(StepCheck):
         exact = self.eager(grid, pose, last_pose, data, mask,
                            dataclasses.replace(params, fast_raycast=False),
                            T_prereg, twin, odom_state, segments)
+        # the exact march drops nothing and sweeps no segment
         for f in got._fields:
-            if f != "rays_dropped":
+            if f not in ("rays_dropped", "segments_swept"):
                 assert bits_equal(getattr(got, f), getattr(exact, f)), \
                     (self.calls, f)
-        assert int(exact.rays_dropped) == 0
+        assert int(exact.rays_dropped) == int(exact.segments_swept) == 0
+        assert int(got.segments_swept) == int(segments.count)
         self.over += 1
         return got
 
@@ -2044,9 +2059,10 @@ def overflow_path(dev, label: str, ref: dict) -> dict:
     med_clean = statistics.median(out["process_scan_clean_ms"])
     print(f"overflow path (ICP, MAX_SEGMENTS {cap}): {out['checked_calls']}"
           f" calls of localize_step_jit equal to the eager step in all "
-          f"nine fields, bit for bit, the {out['over']} that overflowed "
+          f"ten fields, bit for bit, the {out['over']} that overflowed "
           f"also to the exact march's step in every field but "
-          f"rays_dropped ({out['clean']} did not); one graph a robot for "
+          f"rays_dropped and segments_swept ({out['clean']} did not); one "
+          f"graph a robot for "
           f"both (no capture after the priming); max |pose - truth| "
           f"{json.dumps([round(e, 6) for e in out['errs']])} m [{label}]")
     print(f"overflow path, the node as it is: process_scan median "
@@ -2062,6 +2078,231 @@ def overflow_path(dev, label: str, ref: dict) -> dict:
           f"the eager calls and the exact march in every bit "
           f"{checked}; the one-card multi-robot step "
           f"{json.dumps(out['multi_robot_steps'])} [{label}]")
+    return out
+
+
+SITE = {**DOUBLE_LASER, "map_size": 12}    # slambench's double-laser-site
+SITE_CELLS = 4096            # 102.4 m a side
+SCANS_SITE = 10              # the site path's scans a robot
+SITE_ROOMS = (5, 7)          # copies of world()'s room, east and north
+SITE_PITCH = (16.0, 14.0)    # m between their centres (2.4 m between walls)
+
+
+def site_rooms() -> list:
+    """The offsets (m) that carry world()'s room onto its copies on the
+    site's 4096^2 grid, nearest the grid's centre first: the middle copy,
+    where the robots start, takes the offset that carries world()'s
+    25.6 m grid's centre onto the site's.  Each room is closed by its
+    walls, so a scan taken inside a copy is world()'s scan from the pose
+    less the offset."""
+    c = (SITE_CELLS - CELLS) * 0.025 * 0.5
+    nx, ny = SITE_ROOMS
+    out = [(c + SITE_PITCH[0] * (i - nx // 2),
+            c + SITE_PITCH[1] * (j - ny // 2))
+           for j in range(ny) for i in range(nx)]
+    return sorted(out, key=lambda o: math.hypot(o[0] - c, o[1] - c))
+
+
+class SitePush:
+    """`push_check` (PushCheck: the kernel's cull against tile_cull) with
+    the plain push (grid/push.py::push) on the same inputs: the two grids
+    must be equal in every cell of tsd, weight and the tile flags (NaN
+    where the other is NaN).  Stands in for the mapper's push."""
+
+    def __init__(self, push_check):
+        self.push_check = push_check
+        self.calls = 0
+        self.cells = 0
+
+    def __call__(self, grid, geom, pose, data, mask):
+        from ohm_tsd_slam_tpu_torch.grid.push import push
+
+        out = self.push_check(grid, geom, pose, data, mask)
+        ref = push(grid, geom, pose, data, mask)
+        for f in ("tsd", "weight", "tile_init", "tile_initw"):
+            a, b = getattr(out, f), getattr(ref, f)
+            same = a == b
+            if a.is_floating_point():
+                same |= torch.isnan(a) & torch.isnan(b)
+            bad = int((~same).sum())
+            assert bad == 0, (f"the push kernel's {f} differs from the "
+                              f"plain push's in {bad} cells", self.calls)
+        self.calls += 1
+        self.cells += int(torch.isfinite(out.tsd).sum())
+        return out
+
+
+@on_eager_step
+def site_path(dev, label: str, push_check, total: dict, ref: dict):
+    """The double laser at map_size 12 (slambench's double-laser-site:
+    4096^2 cells, 102.4 m, segment capacity 16 x MAX_SEGMENTS, the reach
+    cull before kernel C): world()'s room copied over the grid
+    (site_rooms), every copy but the middle one mapped first by a push of
+    world()'s start scan from its own start, then the ICP path's first
+    SCANS_SITE scans a robot (`ref`, carried into the middle copy) through
+    SlamNode.process_scan, then publish_map.  Every kernel call is held
+    against its plain twin in every bit: the caster's (A, B, C, D, the
+    rounds and E, which runs the cull) by KernelCheck standing in for
+    grid/raycast_fast.py::cuda_kernels, the push by SitePush.  The launch
+    counts are set to 0 before the first push and read after
+    publish_map."""
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck
+    from ohm_tsd_slam_tpu_torch.sensor.polar2d import standard_mask
+    from ohm_tsd_slam_tpu_torch.slam import SlamNode
+
+    cfg = from_flat_params(SITE)
+    node = SlamNode(cfg, dtype=torch.float32, device=dev)
+    assert node.grid.tsd.shape == (SITE_CELLS, SITE_CELLS)
+    assert rf.segment_capacity(node.grid) == 16 * rf.MAX_SEGMENTS
+    geom = geom_1081(cfg.robots[0].sensor.max_range)
+    assert all(rf.reach_cull_pays(node.grid, geom_1081(rc.sensor.max_range))
+               for rc in cfg.robots)
+    rooms = site_rooms()
+    cx, cy = rooms[0]
+    gts = [[(x + cx, y + cy, t) for x, y, t in gt[:SCANS_SITE]]
+           for gt in ref["gts"]]
+    scans = [s[:SCANS_SITE] for s in ref["scans"]]
+    start = ref["gts"][0][0]
+    data, mask = standard_mask(geom, torch.as_tensor(
+        scans[0][0], dtype=torch.float32, device=dev))
+
+    check = KernelCheck()
+    site_push = SitePush(push_check)
+    kernel_push = node.mapper._push_fn
+    node.mapper._push_fn = site_push
+    plain_on_cuda = []
+    saved = watch_plain(plain_on_cuda)
+    saved_kernels = rf.cuda_kernels
+    rf.cuda_kernels = lambda: check.kernels
+    try:
+        reset_counts()               # counts from the site path only
+        t0 = time.perf_counter()
+        for dx, dy in rooms[1:]:
+            pose = se2.make(start[0] + dx, start[1] + dy, start[2],
+                            device=dev)
+            node.grid = site_push(node.grid, geom, pose, data, mask)
+        seeded = site_push.calls
+        run = drive(node, cfg, gts, scans)
+        occ, _ = node.publish_map()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        rf.cuda_kernels = saved_kernels
+        node.mapper._push_fn = kernel_push
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    merge_stats(total, check)
+    run["launches"] = launches
+    seg = node._segments
+    kept = [found["segments"] for name, _, found in check.log
+            if name == "compact_channels"]
+    limit = 2.5 * cfg.grid.cellsize
+    errs = [max(e) for e in run["errs"]]
+    print(f"site path (map_size 12, {len(rooms)} rooms, {seeded} seed "
+          f"pushes): {site_push.calls - seeded} pushes and {run['updates']}"
+          f" grid versions from {run['n_scans']} localized scans, "
+          f"{int(seg.count)} segments of a capacity of {seg.pack.shape[1]} "
+          f"({int(seg.n_dropped)} dropped), the reach cull keeping "
+          f"{min(kept)}-{max(kept)} a scan; max |pose - truth| "
+          f"{json.dumps([round(e, 6) for e in errs])} m (limit {limit} m); "
+          f"kernel launches {json.dumps(launches)}; every call against its "
+          f"twin {json.dumps(check.stats)}, {site_push.calls} pushes "
+          f"against the plain push over {site_push.cells} finite cells; "
+          f"{wall:.3f} s [{label}]")
+    assert max(errs) < limit, errs
+    assert int(seg.count) > rf.MAX_SEGMENTS and int(seg.n_dropped) == 0
+    assert seg.pack.shape[1] == rf.segment_capacity(node.grid)
+    assert 0 < min(kept) and max(kept) < int(seg.count), kept
+    # every kernel equal to its twin in every bit
+    for name, st in check.stats.items():
+        assert st["calls"] > 0 and st["max_abs_err"] == 0.0, (name, st)
+    # one launch a push; A and B once per grid version; the cull's E, C
+    # and D's two entry points once each per scan
+    assert launches["push"] == site_push.calls > seeded, launches
+    assert launches["segment_layers"] == launches["pack_rows"] \
+        >= run["updates"], launches
+    for name in ("compact_channels", "segment_min", "window_replay",
+                 "window_rounds"):
+        assert launches[name] == run["n_scans"], (name, launches)
+    assert not plain_on_cuda, plain_on_cuda
+    assert occ.data.shape == (SITE_CELLS, SITE_CELLS)
+    return node, run
+
+
+def site_cull_times(node, label: str) -> dict:
+    """On the site path's grid, from each robot's last pose: the render
+    on the pack the reach cull keeps against the render on the whole pack
+    (equal in every bit), and the device times (time_device) of both, of
+    the cull alone, of kernel E alone on the cull's mask and of kernel C
+    on either pack, with E's and C's bounds."""
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.ops.segment_min_cuda import segment_min
+
+    grid = node.grid
+    seg = rf.extract_segments(grid)
+    size = seg.pack.shape[1]
+    out = {}
+    for r, loc in enumerate(node.localizers):
+        geom, pose = loc.geom, loc.pose
+        radius = rf.reach_radius(grid, geom)
+        culled = rf.reach_cull(seg, pose, radius)
+        whole = rf.raycast_fast(grid, geom, pose, segments=seg)
+        cut = rf.raycast_fast(grid, geom, pose, segments=culled)
+        for f in whole._fields:
+            assert bits_equal(getattr(whole, f), getattr(cut, f)), (r, f)
+        tr = se2.translation(pose) - seg.origin
+        dx, dy = seg.pack[2] - tr[0], seg.pack[3] - tr[1]
+        keep = (seg.pack[5] > 0.0) & (dx * dx + dy * dy <= radius * radius)
+        ray, tr_b, idx_min, idx_max, _ = rf.beam_geometry(grid, geom, pose)
+        lo = (torch.floor(idx_min) - 1.0).clamp(min=0.0)
+        hi = torch.ceil(idx_max) + 1.0
+        args = (ray, lo, hi, lo, tr_b - seg.origin)
+        n_all, n_kept = int(seg.count), int(culled.count)
+        t = {
+            "render_whole": time_device(lambda: rf.raycast_fast(
+                grid, geom, pose, segments=seg)),
+            "render_culled": time_device(lambda: rf.raycast_fast(
+                grid, geom, pose,
+                segments=rf.reach_cull(seg, pose, radius))),
+            "cull": time_device(lambda: rf.reach_cull(seg, pose, radius)),
+            "E": time_device(compact_launch(
+                keep, [seg.pack[i] for i in range(7)], size)),
+            "C_whole": time_device(lambda: segment_min(
+                seg.pack, seg.count, *args, levels=rf.ROUNDS,
+                cover=rf.COVER)),
+            "C_culled": time_device(lambda: segment_min(
+                culled.pack, culled.count, *args, levels=rf.ROUNDS,
+                cover=rf.COVER))}
+        med = {k: statistics.median(v) for k, v in t.items()}
+        # E reads the mask and 7 rows of the pack and writes the kept
+        # columns' 8 rows; C's level 0 tests every (beam, segment) pair
+        e_bound = (size * (1 + 7 * 4) + n_kept * 8 * 4) / HBM_BYTES_PER_S
+        c_ops = BEAMS * 20 / F32_FLOP_PER_S
+        out[f"robot{r}"] = dict(
+            segments=n_all, kept=n_kept, reach_m=radius, ms=med,
+            E_roofline_pct=100.0 * e_bound * 1e3 / med["E"],
+            C_roofline_pct_whole=100.0 * c_ops * n_all * 1e3
+            / med["C_whole"],
+            C_roofline_pct_culled=100.0 * c_ops * n_kept * 1e3
+            / med["C_culled"])
+        print(f"site reach cull robot{r} (reach {radius:.3f} m): kept "
+              f"{n_kept} of {n_all} segments; render equal to the whole "
+              f"pack's in every bit; device ms (medians of {N_TIMED}): "
+              f"render whole pack {med['render_whole']:.4f}, culled "
+              f"{med['render_culled']:.4f} (saves "
+              f"{med['render_whole'] - med['render_culled']:.4f}); the cull "
+              f"alone {med['cull']:.4f}, of which E {med['E']:.4f} "
+              f"({out[f'robot{r}']['E_roofline_pct']:.2f}% of its bound by "
+              f"bytes); C whole pack {med['C_whole']:.4f} "
+              f"({out[f'robot{r}']['C_roofline_pct_whole']:.2f}% of its "
+              f"bound), culled {med['C_culled']:.4f} "
+              f"({out[f'robot{r}']['C_roofline_pct_culled']:.2f}%) "
+              f"[{label}]")
     return out
 
 
@@ -4818,6 +5059,13 @@ def main() -> int:
     # below the map's segments: the guard inside the graph
     overflow = overflow_path(dev, label, icp_run)
     lap("4c'' overflow path")
+    # 4c'''. the site: the double laser at map_size 12, every kernel call
+    # held against its twin; then the reach cull against the whole pack
+    site_node, site_run = site_path(dev, label, push_check, caster_stats,
+                                    icp_run)
+    site_cull_times(site_node, label)
+    del site_node
+    lap("4c''' site path")
     # 4d. GN, AMCL with the kidnap, the odometry rescue; the render on the
     # ICP path's grid; TwinPoint and multi-init on the TSD path's scene
     gn_node, _ = gn_path(dev, label, push_check)
@@ -4946,6 +5194,7 @@ def main() -> int:
         device_ms=times["push kernel device time (tsd_push_f32 replayed "
                         "from a CUDA graph)"],
         launches_tsd_path=tsd_launches["push"],
+        launches_site_path=site_run["launches"]["push"],
         launches_mesh_path=mesh_launches("push"),
         launches_compiled_path=compiled_launches("push"),
         launches_overflow_and_entry_points=new_launches("push"),
@@ -4968,6 +5217,7 @@ def main() -> int:
     for (name, fn, replaces), tag in zip(CASTER, "ABCDED"):
         key = next(k for k in times if k.startswith(f"{tag} {name} kernel"))
         extra = {"launches_tsd_path": tsd_launches[name],
+                 "launches_site_path": site_run["launches"][name],
                  "launches_mesh_path": mesh_launches(name),
                  "launches_compiled_path": compiled_launches(name),
                  "launches_overflow_and_entry_points": new_launches(name)}
@@ -5013,6 +5263,7 @@ def main() -> int:
                    "stack)")
             extra = {
                 "launches_tsd_path": tsd_launches[name],
+                "launches_site_path": site_run["launches"][name],
                 "launches_mesh_path": mesh_launches(name),
                 "launches_compiled_path": compiled_launches(name),
                 "launches_overflow_and_entry_points": new_launches(name),

@@ -9,9 +9,14 @@ where a beam can hit first and replays the exact march only there:
      squares over the cell-centre quads turns the TSD zero level set into
      line segments, plus short virtual segments through crossings next to
      NaN cells; the segments are compacted in flat order into a fixed list
-     of MAX_SEGMENTS (the rest are counted in n_dropped, never silently
-     lost) and packed into the pose-independent [8, S] candidate pack;
-  2. per scan, the earliest exact ray-segment intersection of each beam
+     of segment_capacity(grid) (MAX_SEGMENTS up to a 1024^2 grid; the rest
+     are counted in n_dropped, never silently lost) and packed into the
+     pose-independent [8, S] candidate pack;
+  2. per scan, on a grid wider than twice a beam's reach (`reach_cull`,
+     which slam/localize.py applies), the pack is first cut to the
+     segments within that reach of the sensor, in the same order: no
+     other segment can hold a candidate, so the render is unchanged;
+     then the earliest exact ray-segment intersection of each beam
      seeds a WINDOW-sample replay of the exact march
      (RayCastPolar2D.cpp:237-270: bilinear taps, +→− hit, −→+ back face,
      NaN skip), BACKOFF steps before the candidate;
@@ -48,6 +53,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ohm_tsd_slam_tpu_torch.core import se2
 from ohm_tsd_slam_tpu_torch.grid.compact import (
     compact_mask,
     pack_channels_rows,
@@ -64,9 +70,12 @@ from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import SensorPolar2D
 from ohm_tsd_slam_tpu_torch.utils.compiled import compiled, when
 
-# max isocontour segments kept; segments beyond this are dropped AND
-# counted (n_dropped; a 1024^2 map of corridors has ~10-30k segments)
+# max isocontour segments kept on a grid of up to CAPACITY_CELLS cells;
+# segments beyond the capacity are dropped AND counted (n_dropped; a
+# 1024^2 map of corridors has ~10-30k segments).  Larger grids get
+# MAX_SEGMENTS for every CAPACITY_CELLS cells (segment_capacity).
 MAX_SEGMENTS = 32768
+CAPACITY_CELLS = 1 << 20
 WINDOW = 8           # replay samples per candidate window
 BACKOFF = 2.0        # window starts this many steps before the candidate
 # backward-compat alias (overflow capacity)
@@ -76,6 +85,16 @@ COVER = WINDOW - BACKOFF - 2.0   # next candidate at least this far on
 # segments per chunk of the candidate sweep's twin: the [beams, chunk]
 # temporaries stay ~35 MB at 1081 float64 beams (the min is order-free)
 SEG_CHUNK = 4096
+
+
+def segment_capacity(grid: TsdGrid) -> int:
+    """The extraction's segment capacity for `grid`: MAX_SEGMENTS (read
+    at call time, so patchable) up to CAPACITY_CELLS cells (map_size 10),
+    and as much again for every further CAPACITY_CELLS cells begun, so
+    that a mapped site of any size keeps the segments a room of corridors
+    would have per cell (map_size 12: 16 x MAX_SEGMENTS)."""
+    cells = grid.cells_x * grid.cells_y
+    return MAX_SEGMENTS * max(1, -(-cells // CAPACITY_CELLS))
 
 
 def unresolved_cap(n_beams: int) -> int:
@@ -385,7 +404,7 @@ def extract_segments(grid: TsdGrid, max_segments: Optional[int] = None,
     for the wrappers of cuda_kernels() (ops/kernel_check.py passes its
     checked ones)."""
     if max_segments is None:
-        max_segments = MAX_SEGMENTS   # resolved at call time (patchable)
+        max_segments = segment_capacity(grid)  # at call time (patchable)
     p0, p1, valid, n_dropped = extract_endpoints(
         grid, max_segments, kernels or cuda_kernels())
     origin = _pack_origin(grid, p0.dtype, p0.device)
@@ -643,6 +662,55 @@ def _core(grid, segments, ray, tr, idx_min, idx_max, feasible, n_dropped,
     return coords_w, S[:, 5:7], hit, S[:, 7] > 0.0, n_dropped
 
 
+def reach_radius(grid: TsdGrid, geom: SensorPolar2D) -> float:
+    """How far from the sensor a segment can hold one of kernel C's
+    candidates: a beam's march ends by max_range + 2 steps (`_core`'s
+    `hi`: ceil(idx_max) + 1, idx_max <= max_range / cell), and a segment
+    is at most 1.8 cells long (the virtual ones; a quad's at most 1.42),
+    so its first endpoint lies within max_range + 3.8 cells.  The radius
+    adds the window's BACKOFF and 4 cells: room for float rounding
+    thousands of times over."""
+    return geom.max_range + (BACKOFF + 4.0) * grid.cell_size
+
+
+def reach_cull_pays(grid: TsdGrid, geom: SensorPolar2D) -> bool:
+    """Whether to cull the pack before kernel C: only where a scan's
+    reach leaves part of the grid out, i.e. the grid's side is more than
+    twice reach_radius (map_size 12 at 0.025 m against a 20-30 m laser;
+    never a 25.6 m map).  Static: the grid's shape and the sensor decide
+    it, so a graph holds the cull or does not."""
+    side = min(grid.cells_x, grid.cells_y) * grid.cell_size
+    return side > 2.0 * reach_radius(grid, geom)
+
+
+def reach_cull(segments: SegmentCache, pose: torch.Tensor, radius: float,
+               kernels: Optional[CasterKernels] = None) -> SegmentCache:
+    """The cache with its pack cut to the valid segments whose first
+    endpoint lies within `radius` of the sensor of `pose`, kept in pack
+    order, and `count` their number: a per-scan list for kernel C.  With
+    radius >= reach_radius, no segment left out can hold a candidate
+    (kernel C's `t <= hi` and `0 <= u <= 1`), so every candidate, hit and
+    drop count equals the whole pack's.
+
+    The test is a few elementwise ops over the pack's capacity, and the
+    kept columns are compacted by kernel E (compact_channels: the pack's
+    rows 0-6 as its channels, in flat order; its validity row lands in
+    row 7, which no reader of the pack reads) into a pack of capacity
+    S + 128.  Nothing is read back to the host.  The capacity, source
+    field, version, endpoints and drop count stay the extraction's."""
+    ks = kernels or cuda_kernels()
+    pack = segments.pack
+    dtype, dev = pack.dtype, pack.device
+    tr = se2.translation(pose.to(dtype)) - segments.origin
+    dx = pack[2] - tr[0]
+    dy = pack[3] - tr[1]
+    r2 = torch.full((), radius * radius, dtype=dtype, device=dev)
+    keep = (pack[5] > 0.0) & (dx * dx + dy * dy <= r2)
+    packed, count = ks.compact_channels(keep, [pack[r] for r in range(7)],
+                                        pack.shape[1])
+    return segments._replace(pack=packed, count=count)
+
+
 def _cache_and_drops(grid: TsdGrid, segments: Optional[SegmentCache],
                      max_segments: Optional[int], n_beams: int,
                      ks: CasterKernels):
@@ -764,7 +832,7 @@ def extract_segments_jit(grid: TsdGrid,
     and its version, as extract_segments' does, so `is_stale` keeps
     working on it."""
     if max_segments is None:
-        max_segments = MAX_SEGMENTS
+        max_segments = segment_capacity(grid)
     seg = _extract_graph(grid, max_segments)
     return seg._replace(tsd=grid.tsd, version=grid.tsd._version)
 

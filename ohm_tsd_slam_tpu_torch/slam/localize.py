@@ -23,7 +23,10 @@ With `fast_raycast` the step renders with the guarded caster
 the scan when the fast caster lost anything to its fixed capacities, and
 `rays_dropped` reports the fast caster's count.  Eagerly that guard reads
 the drop count once (utils/compiled.py::when); no other part of any mode
-reads the device inside the step.
+reads the device inside the step.  On a grid wider than twice the
+sensor's reach the step first cuts the segment cache to the segments in
+reach of the pose (grid/raycast_fast.py::reach_cull: exact, so the render
+is the same), and `segments_swept` reports what kernel C swept.
 
 `localize_step_jit` is the step compiled, as the JAX package's
 `jax.jit(localize_step, static_argnames=("params",))`: on the card one
@@ -52,6 +55,9 @@ from ohm_tsd_slam_tpu_torch.grid.raycast_fast import (
     bind_cache,
     is_stale,
     raycast_checked,
+    reach_cull,
+    reach_cull_pays,
+    reach_radius,
     strip_cache,
 )
 from ohm_tsd_slam_tpu_torch.grid.state import TsdGrid
@@ -113,6 +119,9 @@ class LocalizeResult(NamedTuple):
     # every beam for a stale segment cache (int64; 0 for the exact march).
     # Nonzero means the guard rendered the scan with the exact march.
     rays_dropped: torch.Tensor
+    # segments kernel C swept for the render: the reach cull's count where
+    # it ran, else the cache's (int64; 0 without a cache or a render)
+    segments_swept: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -223,15 +232,19 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
         # mode GN: Gauss-Newton against the field needs neither the model
         # scan nor pairing, so the render is skipped (and nothing dropped)
         gn = match_gauss_newton(grid, pose, scene, scene_mask, params.gn)
+        zero = torch.zeros((), dtype=torch.int64, device=scene.device)
         return _finish(params, pose, last_pose, odom_state, gn.T,
                        gn.matches >= params.gn.min_matches, gn.matches,
-                       scene_mask.sum(), gn.rms, gn.iterations,
-                       torch.zeros((), dtype=torch.int64,
-                                   device=scene.device))
+                       scene_mask.sum(), gn.rms, gn.iterations, zero, zero)
 
     # the fast caster is overflow-guarded: on a capacity overflow the
     # exact march renders the scan, and the drop count is surfaced
+    swept = torch.zeros((), dtype=torch.int64, device=scene.device)
     if params.fast_raycast:
+        if segments is not None and reach_cull_pays(grid, geom):
+            segments = reach_cull(segments, pose, reach_radius(grid, geom))
+        if segments is not None:
+            swept = segments.count.to(torch.int64)
         model = raycast_checked(grid, geom, pose, segments=segments)
     else:
         model = raycast(grid, geom, pose)
@@ -260,12 +273,12 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
     # the raycast-degenerate guard (:354-358): no model point, no pose
     return _finish(params, pose, last_pose, odom_state, icp_res.T,
                    model_valid > 0, model_valid, scene_mask.sum(),
-                   icp_res.rms, icp_res.iterations, model.n_dropped)
+                   icp_res.rms, icp_res.iterations, model.n_dropped, swept)
 
 
 def _finish(params: LocalizeParams, pose, last_pose, odom_state, T,
             reg_ok, model_valid, scene_valid, rms, iterations,
-            rays_dropped) -> LocalizeResult:
+            rays_dropped, segments_swept) -> LocalizeResult:
     """The odometry rescue, the failure gate and the pose update."""
     if params.odom is not None and odom_state is not None:
         T, _ = odometry.check(odom_state, params.odom, T)
@@ -277,7 +290,8 @@ def _finish(params: LocalizeParams, pose, last_pose, odom_state, T,
     return LocalizeResult(
         pose=new_pose, T=T, reg_error=err, significant=significant,
         model_valid=model_valid, scene_valid=scene_valid, rms=rms,
-        icp_iterations=iterations, rays_dropped=rays_dropped)
+        icp_iterations=iterations, rays_dropped=rays_dropped,
+        segments_swept=segments_swept)
 
 
 def _step(grid: TsdGrid, pose: torch.Tensor, last_pose: torch.Tensor,

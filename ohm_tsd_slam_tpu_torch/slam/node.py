@@ -19,7 +19,10 @@ The step guards its render itself (slam/localize.py: raycast_checked, the
 exact march where the fast caster overflowed), so a nonzero drop count is
 only logged, and an overflowing scan costs no third read and no second
 step.  The fast caster's segment extraction runs once per grid version,
-after the mapper drain that made it, and every scan reuses it.  A robot
+after the mapper drain that made it, and every scan reuses it; its
+capacity follows the grid's size (grid/raycast_fast.py::
+segment_capacity), and on a grid wider than twice a laser's reach the
+step cuts it to the segments in reach before each render.  A robot
 in mode GN renders no model scan, so the node extracts nothing for it
 (as the JAX node): on a node whose robots all run GN, kernels A, B and E
 never launch.
@@ -189,11 +192,15 @@ class SlamNode:
     def _segments_for(self, grid) -> SegmentCache:
         """extract_segments_jit() of `grid`, memoized on the field it
         came from (grid/raycast_fast.py::is_stale: tensor identity and
-        version)."""
+        version), at the capacity segment_capacity gives the grid; with
+        the span recorder on, a span `extract` and a device interval of
+        the same name around the extraction."""
         with self._seg_lock:
             seg = self._segments
             if seg is None or is_stale(seg, grid):
-                seg = extract_segments_jit(grid)
+                with spans.span("extract"), spans.device_interval(
+                        "extract", self.device):
+                    seg = extract_segments_jit(grid)
                 self._segments = seg
                 self._seg_new = True
             return seg
@@ -311,9 +318,10 @@ class SlamNode:
         that starts the robot) with the children `preprocess`,
         `segments`, `localize_step_jit`, `read_gates`, `read_pose`,
         `map_update` and `callbacks`, and counts `icp_iterations_run`,
-        `icp_iterations_useful`, `grid_versions`, `segments`,
-        `segments_dropped` and `scans_overflowed` from the values the
-        gates' read brings back anyway."""
+        `icp_iterations_useful`, `grid_versions`, `segment_capacity`,
+        `segments`, `segments_dropped`, `segments_swept` and
+        `scans_overflowed` from the values the gates' read brings back
+        anyway."""
         if not self._active:
             return None
         loc = self.localizers[robot]
@@ -350,16 +358,17 @@ class SlamNode:
 
         with spans.span("read_gates"):
             (reg_error, significant, n_over, icp_iterations, n_segments,
-             n_seg_dropped) = torch.stack(
+             n_seg_dropped, n_swept) = torch.stack(
                 [res.reg_error.to(torch.int64),
                  res.significant.to(torch.int64),
                  res.rays_dropped.to(torch.int64),
                  res.icp_iterations.to(torch.int64),
                  self._zero if seg is None else seg.count.to(torch.int64),
-                 self._zero if seg is None else seg.n_dropped]).tolist()
+                 self._zero if seg is None else seg.n_dropped,
+                 res.segments_swept]).tolist()
         if spans.enabled():
             self._count_scan(params, seg, n_over, icp_iterations,
-                             n_segments, n_seg_dropped)
+                             n_segments, n_seg_dropped, n_swept)
         if n_over > 0:
             # fast-raycast capacity overflow: the guarded exact march
             # re-rendered the scan inside the step (no beams lost) — log
@@ -395,19 +404,24 @@ class SlamNode:
 
     def _count_scan(self, params: LocalizeParams, seg, n_over: int,
                     icp_iterations: int, n_segments: int,
-                    n_seg_dropped: int) -> None:
+                    n_seg_dropped: int, n_swept: int) -> None:
         """A scan's counters (utils/spans.py).  ICP runs all its
         iterations in every mode but GN, which runs none; a grid
-        version's segments count once, on the first scan that renders
-        with them."""
+        version's capacity (its pack's width, a host-side shape) and
+        segments count once, on the first scan that renders with them;
+        the segments kernel C swept count on every scan that rendered
+        with a cache."""
         if params.mode != int(RegMode.GN):
             spans.count("icp_iterations_run", params.icp.iterations)
             spans.count("icp_iterations_useful", icp_iterations)
         if seg is not None and self._seg_new:
             self._seg_new = False
             spans.count("grid_versions")
+            spans.count("segment_capacity", seg.pack.shape[1])
             spans.count("segments", n_segments)
             spans.count("segments_dropped", n_seg_dropped)
+        if seg is not None:
+            spans.count("segments_swept", n_swept)
         if n_over > 0:
             spans.count("scans_overflowed")
 

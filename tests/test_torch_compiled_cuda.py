@@ -5,7 +5,7 @@ one; on the card run them with
 This file imports torch and numpy only: the card's machine has no JAX.
 Asserted, on a float32 room (map_size 8, 0.04 m cells, 361 beams):
   * SlamNode's compiled step (localize_step_jit, graph replays) equals the
-    eager localize_step on the same inputs in every bit of all nine
+    eager localize_step on the same inputs in every bit of all ten
     fields over 30 scans that cross grid versions (so the copy of a new
     grid into the graph's buffers runs), in the modes ICP, GN, TSD and
     AMCL; in the modes that draw, the generator is left where the eager

@@ -136,9 +136,10 @@ def test_guarded_entry_points_one_graph_both_branches(cuda_device):
         ref = localize_step(grid, pose, pose, data, mask,
                             exact if over else params, segments=seg)
         for f in res._fields:
-            if f != "rays_dropped":
+            if f not in ("rays_dropped", "segments_swept"):
                 assert _same(getattr(res, f), getattr(ref, f)), f
         assert int(res.rays_dropped) == int(seg.n_dropped)
+        assert int(res.segments_swept) == int(seg.count)
     assert (checked.captures, step.captures) == (n0[0] + 1, n0[1] + 1)
 
 

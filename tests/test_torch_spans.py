@@ -9,12 +9,13 @@ on a small float32 room (map_size 8, 0.04 m cells, 361 beams, ICP):
     object;
   * on, each scan is one `process_scan` root of trace (robot, scan
     counter) whose children come in order, each inside its parent;
-    `map_update` (with a `push`) appears on exactly the scans that
-    mapped, and `pushes` counts them; a compiled entry point is one
+    `map_update` (with a `push` and an `extract`) appears on exactly the
+    scans that mapped, and `pushes` counts them; a compiled entry point is one
     eager span on the CPU; `icp_iterations_useful` is the sum of the
     steps' `icp_iterations`, `icp_iterations_run` 30 a scan (1 useful a
-    scan where an RMS exit stops ICP at once), and each grid version's
-    segments count once;
+    scan where an RMS exit stops ICP at once), each grid version's
+    segments and capacity count once, `segments_swept` each step's, and
+    none of them adds a read of a tensor's value;
   * the poses and the grid of 20 scans equal, in every bit, those of the
     same 20 scans with the recorder off;
   * a span brackets the `record_function` event of a profiler session
@@ -22,8 +23,9 @@ on a small float32 room (map_size 8, 0.04 m cells, 361 beams, ICP):
     parents and traces, and the Chrome trace has one complete event a
     span.
 On the card: each `replay` span brackets its `cudaGraphLaunch` in a
-profiler session and its device interval resolves, and the recorder
-adds no host read to `process_scan`.
+profiler session and its device interval resolves, `extract` has a
+device interval inside `map_update`, and the recorder adds no host read
+to `process_scan`.
 """
 
 import contextlib
@@ -173,7 +175,10 @@ def test_each_scan_is_one_root_with_its_children_in_order(runs):
         if mapped:
             update = kids[ORDER.index("map_update")]
             assert [c.name for c in _children(recs, update.id)] == [
-                "push", "extract_segments_jit"]
+                "push", "extract"]
+            extract = _children(recs, update.id)[1]
+            assert [c.name for c in _children(recs, extract.id)] == [
+                "extract_segments_jit"]
     assert sum(on["mapped"]) > 2
     assert on["counters"]["pushes"] == sum(on["mapped"])
     assert on["counters"].get("scans_overflowed", 0) == 0
@@ -190,6 +195,56 @@ def test_icp_and_segment_counters(runs):
     assert c["grid_versions"] == len(caches) == sum(on["mapped"][:-1]) + 1
     assert c["segments"] == sum(int(s.count) for s in caches)
     assert c["segments_dropped"] == sum(int(s.n_dropped) for s in caches)
+
+
+def test_capacity_and_swept_counters(runs):
+    """`segment_capacity` counts each grid version's capacity once (the
+    pack's width, a shape: MAX_SEGMENTS at map_size 8), and
+    `segments_swept` each step's count of the segments kernel C swept
+    (the whole cache here: a 9 m laser on a 10.24 m map is no place for
+    the reach cull)."""
+    _, on = runs
+    c, steps = on["counters"], on["steps"]
+    caches = list({id(s): s for s in steps.caches}.values())
+    assert c["segment_capacity"] == sum(s.pack.shape[1] for s in caches)
+    assert c["segment_capacity"] == len(caches) * 32768
+    assert c["segments_swept"] == sum(int(r.segments_swept)
+                                      for r in steps.results)
+    assert c["segments_swept"] == sum(int(s.count) for s in steps.caches)
+
+
+def test_the_new_counters_add_no_host_read():
+    """The same 10 scans on two CPU nodes, the recorder off and on: the
+    same reads of tensor values by the host, in the same order (on the
+    card: test_recording_adds_no_host_read)."""
+    names = ("tolist", "item", "__bool__", "__int__", "__float__")
+    saved = {name: getattr(torch.Tensor, name) for name in names}
+
+    def counted(name, orig, reads):
+        def read(self, *args, **kwargs):
+            reads.append(name)
+            return orig(self, *args, **kwargs)
+        return read
+
+    got = []
+    for on in (False, True):
+        node = tnode.SlamNode(CFG, dtype=torch.float32, device="cpu", seed=3)
+        node.process_scan(0, _scan(0))
+        reads = []
+        with (_recording() if on else contextlib.nullcontext()):
+            for name, orig in saved.items():
+                setattr(torch.Tensor, name, counted(name, orig, reads))
+            try:
+                for k in range(1, 11):
+                    node.process_scan(0, _scan(k))
+            finally:
+                for name, orig in saved.items():
+                    setattr(torch.Tensor, name, orig)
+            if on:
+                counts = spans.counters()
+        got.append(reads)
+    assert got[0] == got[1] and got[0].count("tolist") == 10
+    assert counts["segments_swept"] > 0 and counts["segment_capacity"] > 0
 
 
 def test_icp_useful_counts_an_early_exit():
@@ -346,6 +401,28 @@ def test_replay_spans_bracket_their_graph_launch(cuda_device):
         assert [c.name for c in recs if c.parent == s.id] == [
             "key", "copy_in", "replay", "clone_out"]
     assert counts.get("captures", 0) == 0
+
+
+@pytest.mark.cuda
+def test_extract_has_a_device_interval_inside_map_update(cuda_device):
+    node = tnode.SlamNode(CFG, device=cuda_device, seed=3)
+    node.process_scan(0, _scan(0))
+    with _recording():
+        for k in range(1, 11):
+            node.process_scan(0, _scan(k))
+        recs = spans.records()
+    by_id = {r.id: r for r in recs}
+    extracts = [r for r in recs if r.name == "extract"
+                and "device_ms" not in r.attrs]
+    assert extracts
+    for r in extracts:
+        assert by_id[r.parent].name in ("map_update", "segments")
+        kids = [x for x in recs if x.parent == r.id]
+        assert sorted(x.name for x in kids) == ["extract",
+                                                "extract_segments_jit"]
+        interval, = [x for x in kids if x.name == "extract"]
+        assert interval.attrs["device_ms"] > 0
+    assert any(by_id[r.parent].name == "map_update" for r in extracts)
 
 
 @pytest.mark.cuda
