@@ -7,7 +7,8 @@ records the disagreement, raises past the tolerance, and returns the
 kernel's result.  `extract_segments(grid, kernels=check.kernels)` and
 `raycast_fast(..., kernels=check.kernels)` then drive the kernel path
 with the check at every call, the candidate rounds included.  Used by
-chip_smoke.py and tests/test_torch_raycast_kernels.py.
+the port's `cuda` tests (tests/test_torch_raycast_kernels.py,
+test_torch_paths_cuda.py and others).
 
 Tolerances: the layer mask, its row counts, the candidates' finite
 pattern and the replay's events and flags must be equal; the channel

@@ -40,8 +40,8 @@ _F = ctypes.c_float
 MAX_CAP = 48 * 1024 // 4
 # the most beams the rounds take in one block; more take a cooperative
 # launch of a block for each ROUNDS_THREADS beams (window_rounds_blocks).
-# The crossover on an H100 (chip_smoke.py::rounds_crossover): one block
-# is the faster at 3243 beams, the cooperative launch at 4324
+# The crossover on an H100 (tools/torch_kernel_times.py::rounds_crossover):
+# one block is the faster at 3243 beams, the cooperative launch at 4324
 ONE_BLOCK_BEAMS = 3584
 ROUNDS_THREADS = 1024        # csrc/window_replay.cu::kRoundsThreads
 
@@ -180,10 +180,10 @@ def window_rounds(grid: TsdGrid, S: torch.Tensor, lev: torch.Tensor,
     Returns (S after the rounds, the int64 count of beams that needed a
     round beyond its `cap` replays).  On the card S is updated in place and
     returned; use the result, not the argument.  One launch whatever N, of
-    `blocks` blocks (window_rounds_blocks(N) by default; chip_smoke.py
-    times other counts against it): one block lists in shared memory,
-    more are a cooperative launch with a list and block counts in a
-    scratch tensor."""
+    `blocks` blocks (window_rounds_blocks(N) by default;
+    tools/torch_kernel_times.py times other counts against it): one block
+    lists in shared memory, more are a cooperative launch with a list and
+    block counts in a scratch tensor."""
     if not grid.tsd.is_cuda:
         return window_rounds_plain(grid, S, lev, ray, idx_min, idx_max, tr,
                                    cap)

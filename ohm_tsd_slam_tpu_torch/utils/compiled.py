@@ -53,7 +53,8 @@ not take have run once before the capture too.
 The kernel wrappers count their launches in Python (`fn.launches`, see
 ops/*_cuda.py): the warm-up and the capture call them, a replay does not.
 What the device ran on a compiled path is read from a trace of it
-(chip_smoke.py::compiled_device_launches).  Each graph keeps its static
+(tests/test_torch_paths_cuda.py::
+test_compiled_path_launches_from_a_trace).  Each graph keeps its static
 buffers and its memory pool until `clear_cache()` drops it, as a jitted
 function keeps its executables.
 """

@@ -13,7 +13,7 @@ Asserted:
     duplicate model points and scene points equidistant from one model
     point, with every model or every scene point masked, with NaN
     coordinates under a true mask, with more model points than one staged
-    tile holds, and on two real 1081-beam scans of chip_smoke.py's room;
+    tile holds, and on two real 1081-beam scans of utils/testing.py's room;
   * icp_jit equals eager icp in every bit (T, rms, pairs, iterations,
     state and the histories) for both estimators;
   * a capture of icp_jit calls the wrapper once an iteration in its
@@ -50,14 +50,18 @@ from ohm_tsd_slam_tpu_torch.slam.localize import (
 from ohm_tsd_slam_tpu_torch.utils.testing import (
     limit_cpu_threads,
     rect_walls,
+    scan_ranges,
     simulate_scan,
 )
+
+# the card's run passes --noconftest: the helpers' file by its folder
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_card as tc  # noqa: E402
 
 limit_cpu_threads()
 
 # the module (the package's `icp` is the function)
 icp_mod = importlib.import_module("ohm_tsd_slam_tpu_torch.registration.icp")
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = GridConfig(map_size=8, cellsize=0.04)
 BEAMS, RES, PHI0, RMAX = 361, math.radians(0.75), math.radians(-135), 9.0
 GEOM = polar2d.SensorPolar2D(size=BEAMS, angular_res=RES, phi_min=PHI0,
@@ -219,15 +223,13 @@ def test_masks_and_nan(cuda_device, dtype):
 
 
 def _room_scans(dev, dtype):
-    """Two 1081-beam scans of chip_smoke.py's room 2 cm and half a degree
-    apart, as ICP's model and scene (each in its own sensor frame)."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
-    geom = chip_smoke.geom_1081()
+    """Two 1081-beam scans of utils/testing.py's room 2 cm and half a
+    degree apart, as ICP's model and scene (each in its own sensor
+    frame)."""
+    geom = tc.geom_1081()
     out = []
     for xyt in ((8.0, 12.0, 0.3), (8.02, 12.0, 0.3 + math.radians(0.5))):
-        ranges = torch.from_numpy(chip_smoke.scan_ranges(xyt, 30.0))
+        ranges = torch.from_numpy(scan_ranges(xyt, 30.0))
         data, mask = polar2d.standard_mask(geom, ranges.to(dev, dtype))
         out += list(polar2d.data_to_cartesian(geom, data, mask))
     return out

@@ -9,15 +9,19 @@ trajectory is the JAX package's within the float64 node parity tests'
 digit), the grid checkpoint within 1e-9 and NaN for NaN.  `launch multi`
 runs both robots of configs/double-laser.yaml; `ros` without rclpy returns
 1; without --device the node wants the card and says so where there is
-none."""
+none.  On the card (`cuda`): `simulate` and `run` of
+configs/single-laser.yaml at 1081 beams as subprocesses, as users start
+them (this case imports no JAX: the card's machine has none)."""
 
 import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from ohm_tsd_slam_tpu.__main__ import main as jmain
 from ohm_tsd_slam_tpu_torch.__main__ import main
 from ohm_tsd_slam_tpu_torch.grid.checkpoint import load_npz, load_text
 from ohm_tsd_slam_tpu_torch.utils.testing import limit_cpu_threads
@@ -35,6 +39,19 @@ slam_node:
     min_range: 0.01
 """
 STEPS, BEAMS = 80, 271
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# 240 scans of `simulate` move the robot 8 cm and 1.5 deg a scan around a
+# 3.1 m circle; 60 would move it 32 cm a scan, beyond the yaml's 0.25 m
+# registration gate (both packages lose that loop)
+CARD_STEPS = 240
+
+
+def jmain(argv):
+    """The JAX package's command line (imported here: the card's machine,
+    which runs this file's `cuda` case, has no JAX)."""
+    from ohm_tsd_slam_tpu.__main__ import main as jax_main
+
+    return jax_main(argv)
 OUTPUTS = ("trajectory.csv", "map.pgm", "map_color.ppm", "grid.npz",
            "grid_store.txt")
 
@@ -150,3 +167,46 @@ def test_run_wants_the_card_by_default(log, tmp_path):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="device"):
         main(["run", scans, "--config", cfg, "--out", str(tmp_path)])
+
+
+@pytest.mark.cuda
+def test_simulate_and_run_on_the_card(tmp_path):
+    """`simulate` then `run` on the card, each a subprocess: every output
+    file, the printed trajectory error within 2.5 cells, one row a
+    localized scan, and grid.npz equal to the reference-format text
+    checkpoint of the same grid (--store-text), value for value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = os.path.join(REPO, "configs", "single-laser.yaml")
+    scans, out = str(tmp_path / "scans.npz"), str(tmp_path / "out")
+    printed = []
+    for args in (["simulate", "--config", cfg, "--beams", "1081",
+                  "--steps", str(CARD_STEPS), "--out", scans],
+                 ["run", scans, "--config", cfg, "--out", out,
+                  "--store-text"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "ohm_tsd_slam_tpu_torch", *args],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, (args[0], proc.stderr[-2000:])
+        printed.append(proc.stdout)
+    for name in OUTPUTS:
+        assert os.path.exists(os.path.join(out, name)), name
+    err = re.search(r"trajectory error vs ground truth: mean (\S+) m, "
+                    r"max (\S+) m", printed[1])
+    assert float(err.group(2)) < 2.5 * 0.025, printed[1]
+    assert re.search(r"process_scan on cuda\S*: median", printed[1])
+    with open(os.path.join(out, "trajectory.csv")) as f:
+        assert f.read().count("\n") - 1 == CARD_STEPS - 1
+    g = load_npz(os.path.join(out, "grid.npz"), device="cpu")
+    t = load_text(os.path.join(out, "grid_store.txt"), device="cpu")
+    for f in ("tsd", "weight", "tile_init"):
+        a, b = getattr(g, f), getattr(t, f)
+        assert torch.equal(a.isnan(), b.isnan()), f
+        assert torch.equal(a.nan_to_num(), b.nan_to_num()), f
+    # the text stores a tile's emptiness weight only while it has no
+    # cells, and its reader clamps it at the maximum weight
+    # (TsdGrid.cpp:84-85)
+    empty = ~g.tile_init
+    assert torch.equal(g.tile_initw[empty].clamp(max=t.max_weight),
+                       t.tile_initw[empty])
+    assert int(g.tile_init.sum()) > 100

@@ -214,9 +214,9 @@ def test_node_replays_equal_the_eager_step(cuda_device, mode, monkeypatch):
     assert graph.captures == captures + 1
     assert _same(got, eager)
     if mode != RegMode.GN:
-        # GN loses this room in both steps alike (ROADMAP.md: it loses
-        # track on chip_smoke.py's turning path too, as the JAX package
-        # does); the others track it
+        # GN loses this room in both steps alike (it loses track on the
+        # turning trajectory of utils/testing.py's room too, as the JAX
+        # package does: tools/gn_trajectory.py); the others track it
         err = math.hypot(float(got[-1, 0, 2]) - (5.12 + 0.03 * (SCANS - 1)),
                          float(got[-1, 1, 2]) - 5.12)
         assert err < 2.5 * CFG.cellsize

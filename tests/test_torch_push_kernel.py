@@ -33,8 +33,13 @@ from ohm_tsd_slam_tpu_torch.sensor import polar2d
 from ohm_tsd_slam_tpu_torch.utils.testing import (
     limit_cpu_threads,
     rect_walls,
+    scan_ranges,
     simulate_scan,
 )
+
+# the card's run passes --noconftest: the helpers' file by its folder
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_card as tc  # noqa: E402
 
 limit_cpu_threads()
 
@@ -138,6 +143,35 @@ def test_kernel_matches_plain_push(cuda_device):
     assert push_cuda.launches == before + len(POSES)
     _compare(g_ref, g_ker)
     assert np.isfinite(to_arrays(g_ker)["tsd"]).sum() > 1000
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_push_on_the_room(cuda_device):
+    """At the upstream configs' size (1024^2 cells of 0.025 m, 1081
+    beams): three scans of the room into one grid through PushCheck, the
+    grid against the plain push's within compare_push's bounds (the
+    largest tsd gap within PUSH_TOL); a sensor outside the grid and an
+    all-masked scan, which touch no tile."""
+    geom = tc.geom_1081()
+    grid0 = create(GridConfig(map_size=10, cellsize=0.025),
+                   device=cuda_device)
+    check = PushCheck()
+    g_ref = g_ker = grid0
+    for xyt in [(12.8, 12.8, 0.0), (13.1, 12.9, 0.3), (12.4, 13.2, -0.4)]:
+        data, mask = polar2d.standard_mask(geom, torch.as_tensor(
+            scan_ranges(xyt, geom.max_range), dtype=torch.float32,
+            device=cuda_device))
+        pose = se2.make(*xyt, device=cuda_device)
+        g_ref = push(g_ref, geom, pose, data, mask)
+        g_ker = check(g_ker, geom, pose, data, mask)
+    assert tc.compare_push(g_ref, g_ker)["finite_cells"] > 100_000
+    inf = torch.full((geom.size,), math.inf, device=cuda_device)
+    none = torch.zeros(geom.size, dtype=torch.bool, device=cuda_device)
+    for xyt in [(60.0, 60.0, 0.0), (12.8, 12.8, 0.0)]:
+        pose = se2.make(*xyt, device=cuda_device)
+        g_k = check(grid0, geom, pose, inf, none)
+        tc.compare_push(push(grid0, geom, pose, inf, none), g_k)
+        assert not bool(g_k.tile_init.any())
 
 
 @pytest.mark.cuda

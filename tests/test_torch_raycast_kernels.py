@@ -556,6 +556,21 @@ def test_empty_grid(cuda_device):
     assert int(seg.count) == 0 and not res.mask.any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["push", "window_replay", "segment_min",
+                                  "pack_rows", "compact_channels",
+                                  "assign_pairs"])
+def test_kernel_has_no_stack_frame_or_spill(cuda_device, name):
+    """ptxas's report of csrc/<name>.cu built with its flags: no kernel of
+    it indexes a local array at run time or spills."""
+    from ohm_tsd_slam_tpu_torch.ops import _build
+
+    frames = [line for line in _build.resource_usage(name)
+              if "stack frame" in line]
+    assert frames and all(f.startswith("0 bytes stack frame, 0 bytes spill "
+                                       "stores") for f in frames), frames
+
+
 def test_flag_change_names_a_new_library(monkeypatch):
     """A library is keyed on its nvcc flags: after a change of flags the
     kernel is built anew, never loaded from a library built without."""

@@ -1,6 +1,7 @@
 """Rank processes for the port's mesh tests (tests/test_torch_mesh.py,
 test_torch_shard_raycast.py, test_torch_shard_matchers.py,
-test_torch_sharded_step.py, test_torch_push_tree.py).
+test_torch_sharded_step.py, test_torch_push_tree.py, and on the card
+test_torch_paths_cuda.py).
 
 `run_world(job, inputs, shape, tmp_path)` starts one process a rank with
 torchrun's environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK,
@@ -10,7 +11,9 @@ this file as a script: it imports only the port (never jax), joins the
 world through parallel/distributed.py::initialize, builds the (sp, dp)
 mesh, runs JOBS[job] on the inputs' npz and writes its results to
 rank<r>.npz.  The parent compares them with the JAX package's functions
-and the port's one-card functions.
+and the port's one-card functions.  With device_type="cuda" the ranks
+join on the card (one rank on NCCL; several share the card on gloo) and
+run the card's job, which asserts its checks itself.
 
 Inputs and results are flat dicts of numpy arrays; a grid travels as its
 `to_arrays` fields under a prefix, parameters as a JSON string.
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import socket
 import subprocess
@@ -44,11 +48,11 @@ def _free_port() -> int:
 
 
 def run_world(job: str, inputs: dict, shape, tmp_path,
-              timeout: float = 300.0) -> list:
-    """Run `job` on a gloo world of sp * dp rank processes; `shape` is
-    (sp, dp), or "auto" for make_mesh over 4 ranks.  Returns the ranks'
-    result dicts in rank order; raises with a rank's output if it
-    failed."""
+              timeout: float = 300.0, device_type: str = "cpu") -> list:
+    """Run `job` on a world of sp * dp rank processes on `device_type`
+    (gloo, but NCCL for one rank on the card); `shape` is (sp, dp), or
+    "auto" for make_mesh over 4 ranks.  Returns the ranks' result dicts in
+    rank order; raises with a rank's output if it failed."""
     n = 4 if shape == "auto" else shape[0] * shape[1]
     mesh_arg = "auto" if shape == "auto" else f"{shape[0]}x{shape[1]}"
     os.makedirs(tmp_path, exist_ok=True)
@@ -62,7 +66,7 @@ def run_world(job: str, inputs: dict, shape, tmp_path,
     for r in range(n):
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), job, inp,
-             str(tmp_path), mesh_arg],
+             str(tmp_path), mesh_arg, device_type],
             env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     outs = []
@@ -338,8 +342,156 @@ def job_tiles(mesh, inp, p):
             "raised": np.array(raised)}
 
 
+def job_card(mesh, inp, p):
+    """On the card, configs/double-laser.yaml's two robots at the real
+    size (tests/torch_card.py::multi_robot_setup): the push into the
+    rank's row block equal in every bit to those rows of the whole grid's
+    push, and within compare_push of the plain push into the block; the
+    sharded render of each robot against the one-card caster (coordinates
+    within MULTI_TOL where both hit, at most 0.5% of the beams' hits
+    flipped), kernels A, B and C on the row block and D on the halo'd
+    block against their twins at every launch; STEPS_MULTI eager ICP
+    steps of the sharded step within 2.5 cells, the first within
+    MULTI_TOL of the one-card step, with their launches; one TSD and one
+    GN step; where make_sharded_step compiles (NCCL), its replays equal
+    the eager step in every bit."""
+    import functools
+
+    import torch
+    import torch_card as tc
+
+    from ohm_tsd_slam_tpu_torch.config import from_flat_params
+    from ohm_tsd_slam_tpu_torch.core import se2
+    from ohm_tsd_slam_tpu_torch.grid import raycast_fast as rf
+    from ohm_tsd_slam_tpu_torch.grid.push import push
+    from ohm_tsd_slam_tpu_torch.ops.kernel_check import KernelCheck, PushCheck
+    from ohm_tsd_slam_tpu_torch.parallel import (
+        grid_sharding,
+        make_sharded_step,
+        multi_robot_slam_step,
+        robot_sharding,
+        sharded,
+    )
+    from ohm_tsd_slam_tpu_torch.parallel.distributed import local_device
+    from ohm_tsd_slam_tpu_torch.parallel.mesh import axis_size, shard_rows
+    from ohm_tsd_slam_tpu_torch.parallel.shard_raycast import (
+        sharded_raycast,
+    )
+    from ohm_tsd_slam_tpu_torch.registration.ransac import RansacParams
+    from ohm_tsd_slam_tpu_torch.utils.testing import SINGLE_LASER
+
+    dev = local_device("cuda")
+    push_check = PushCheck()
+    cfg, geom, params, gts, grid0, poses0 = tc.multi_robot_setup(
+        dev, push_check)
+    R, steps = poses0.shape[0], tc.STEPS_MULTI
+    limit = 2.5 * cfg.grid.cellsize
+
+    # the push into the row block against the whole grid's push
+    shard0 = grid_sharding(mesh, grid0)
+    y0, h, _ = shard_rows(mesh, shard0)
+    ty0 = y0 // shard0.tile_dim
+    data1, mask1 = tc.multi_robot_inputs(gts, 1, dev)
+    pose1 = se2.make(*gts[0][1], device=dev)
+    whole = push_check(grid0, geom, pose1, data1[0], mask1[0])
+    mine = push_check(shard0, geom, pose1, data1[0], mask1[0], ty0=ty0)
+    tiles = slice(ty0, ty0 + shard0.tiles_y)
+    for f, rows in (("tsd", slice(y0, y0 + h)), ("weight", slice(y0, y0 + h)),
+                    ("tile_init", tiles), ("tile_initw", tiles)):
+        assert tc.bits_equal(getattr(mine, f), getattr(whole, f)[rows]), f
+    tc.compare_push(push(shard0, geom, pose1, data1[0], mask1[0], ty0=ty0),
+                    mine)
+
+    # the sharded render of each robot against the one-card caster
+    check = KernelCheck()
+    for r in range(R):
+        pose = se2.make(*gts[r][1], device=dev)
+        got = sharded_raycast(mesh, shard0, geom, pose,
+                              kernels=check.kernels)
+        ref = rf.raycast_fast(grid0, geom, pose)
+        both = got.mask & ref.mask
+        gap = (got.coords - ref.coords).abs()[both]
+        assert int(got.n_dropped) == 0 and int(got.mask.sum()) > geom.size // 2
+        assert int((got.mask != ref.mask).sum()) <= 0.005 * geom.size
+        assert not gap.numel() or float(gap.max()) <= tc.MULTI_TOL
+    for name in ("segment_layers", "pack_rows", "segment_min",
+                 "window_replay"):
+        assert check.stats[name]["calls"] > 0, check.stats
+        assert check.stats[name]["max_abs_err"] == 0.0, check.stats
+
+    # the eager steps, every push checked and every launch counted; the
+    # first against the one-card step
+    ref1 = multi_robot_slam_step(grid0, poses0, data1, mask1, params)
+    best_push = sharded.best_push
+    sharded.best_push = lambda grid: push_check
+    step, place = make_sharded_step(mesh, params)
+    eager = functools.partial(multi_robot_slam_step, params=params,
+                              mesh=mesh)
+    g, p, _, _ = place(grid0, poses0, data1, mask1)
+    tc.reset_counts()
+    for k in range(1, steps + 1):
+        data, mask = tc.multi_robot_inputs(gts, k, dev)
+        res = eager(g, p, robot_sharding(mesh, data),
+                    robot_sharding(mesh, mask), seed=k)
+        assert int(res.rays_dropped) == 0, k
+        assert not bool(res.reg_error.any()), (k, res.reg_error)
+        if k == 1:
+            assert float((res.poses - ref1.poses)[:, :2, 2].abs().max()
+                         ) < tc.MULTI_TOL
+        g, p = res.grid, robot_sharding(mesh, res.poses)
+        poses = res.poses.cpu()
+        for r, gt in enumerate(gts):
+            assert math.hypot(float(poses[r, 0, 2]) - gt[k][0],
+                              float(poses[r, 1, 2]) - gt[k][1]) < limit
+    la = tc.read_counts()
+    renders = steps * R // axis_size(mesh, "dp")
+    assert la["segment_layers"] == la["pack_rows"] == renders, la
+    assert la["segment_min"] == la["window_replay"] == rf.ROUNDS * renders
+    assert la["push"] == R * steps, la
+    assert la["window_rounds"] == la["compact_channels"] == 0, la
+
+    # one step each in the modes TSD and GN from the last state
+    data, mask = tc.multi_robot_inputs(gts, steps, dev)
+    d, m = robot_sharding(mesh, data), robot_sharding(mesh, mask)
+    for mode in (3, 4):
+        mparams = dataclasses.replace(
+            params, mode=mode, ransac=RansacParams.from_config(
+                from_flat_params(SINGLE_LASER).robots[0].registration.ransac,
+                geom.angular_res))
+        mstep, _ = make_sharded_step(mesh, mparams)
+        res = multi_robot_slam_step(g, p, d, m, mparams, seed=7, mesh=mesh)
+        if mstep.compiled is not None:
+            # the step's graph, the push kernel unchecked inside it (the
+            # check reads the card), against the eager step
+            sharded.best_push = best_push
+            try:
+                assert tc.step_results_equal(mstep(g, p, d, m, seed=7),
+                                             res), mode
+            finally:
+                sharded.best_push = lambda grid: push_check
+        assert not bool(res.reg_error.any()), (mode, res.reg_error)
+        assert bool(torch.isfinite(res.poses).all()), mode
+        moved = robot_sharding(mesh, res.poses) - p
+        assert float(moved[:, :2, 2].abs().max()) < limit, mode
+    sharded.best_push = best_push
+
+    # the step as make_sharded_step returns it: a graph on NCCL, each
+    # replay against the eager step in every bit; eager on gloo
+    if step.compiled is not None:
+        g, p, _, _ = place(grid0, poses0, data1, mask1)
+        for k in range(1, 6):
+            data, mask = tc.multi_robot_inputs(gts, k, dev)
+            d, m = robot_sharding(mesh, data), robot_sharding(mesh, mask)
+            got = step(g, p, d, m, seed=k)
+            assert tc.step_results_equal(got, eager(g, p, d, m, seed=k)), k
+            g, p = got.grid, robot_sharding(mesh, got.poses)
+        assert step.compiled.captures == 1
+    return {"icp_steps": np.array(steps),
+            "compiled": np.array(step.compiled is not None)}
+
+
 JOBS = {"mesh": job_mesh, "raycast": job_raycast, "matchers": job_matchers,
-        "step": job_step, "tiles": job_tiles}
+        "step": job_step, "tiles": job_tiles, "card": job_card}
 
 
 def main(argv) -> int:
@@ -351,16 +503,20 @@ def main(argv) -> int:
     from ohm_tsd_slam_tpu_torch.parallel.distributed import initialize
     from ohm_tsd_slam_tpu_torch.utils.testing import limit_cpu_threads
 
-    job, inp_path, out_dir, mesh_arg = argv[1:5]
+    job, inp_path, out_dir, mesh_arg, device_type = argv[1:6]
     limit_cpu_threads()
-    assert initialize(device_type="cpu"), \
+    # NCCL takes one rank a card: ranks sharing the card take gloo
+    one_card_rank = device_type == "cuda" and os.environ["WORLD_SIZE"] == "1"
+    backend = "nccl" if one_card_rank else "gloo"
+    assert initialize(backend=backend, device_type=device_type), \
         "initialize() did not join the world"
     try:
         if mesh_arg == "auto":
-            mesh = make_mesh("cpu")
+            mesh = make_mesh(device_type)
         else:
             sp, dp = (int(x) for x in mesh_arg.split("x"))
-            mesh = DeviceMesh("cpu", torch.arange(sp * dp).reshape(sp, dp),
+            mesh = DeviceMesh(device_type,
+                              torch.arange(sp * dp).reshape(sp, dp),
                               mesh_dim_names=("sp", "dp"))
         inp = dict(np.load(inp_path))
         params = json.loads(str(inp.pop("params", "{}")))

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Mode GN along chip_smoke.py's trajectories, in both packages, on the CPU.
+"""Mode GN along the card tests' trajectories, in both packages, on the CPU.
 
     env JAX_PLATFORMS=cpu python3 tools/gn_trajectory.py [scans]
 
 Drives SlamNode of the JAX package and of the PyTorch port in mode GN
 (`registration_mode: 4`, configs/single-laser.yaml's settings, float32,
-the 1024^2 grid of 0.025 m cells, 1081 beams) through chip_smoke.py's room
+the 1024^2 grid of 0.025 m cells, 1081 beams) through utils/testing.py's room
 twice: on its turning trajectory (2 cm and 0.5 deg a scan, the other
 paths') and straight (2 cm a scan, the GN path's), and prints each scan's
 |pose - truth| in metres ("nan" marks a scan whose registration was
@@ -28,7 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def run(pkg: str, turn_deg: float, scans: int) -> list:
-    import chip_smoke as cs
+    from ohm_tsd_slam_tpu_torch.utils import testing as cs
 
     if pkg == "jax":
         import jax.numpy as jnp
