@@ -36,34 +36,47 @@ def closed_form_2d(model: torch.Tensor, scene: torch.Tensor,
     (3,3) transform moving the scene toward the model and the mean
     squared pair distance before it (Icp.cpp:428)."""
     return closed_form_2d_paired(model[model_idx.to(torch.int64)], scene,
-                                 pair_mask)
+                                 pair_mask)[:2]
 
 
 def closed_form_2d_paired(pm: torch.Tensor, scene: torch.Tensor,
                           pair_mask: torch.Tensor
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """closed_form_2d on pre-gathered paired model points pm (S, 2)."""
-    n = pair_mask.sum().clamp(min=1).to(pm.dtype)
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """closed_form_2d on pre-gathered paired model points pm (S, 2).
+    Returns (T, rms, n), n the pair count in pm's dtype (exact up to 2^24
+    pairs in float32).
 
-    rms = _masked_mean(torch.sum((pm - scene) ** 2, dim=1), pair_mask, n)
+    The eight masked sums are two reductions: one over the rows [pm_x,
+    pm_y, scene_x, scene_y, |pm - scene|², 1] (the centroids, rms and the
+    count), one over the per-pair terms of nom and den, each formed pair
+    by pair so that no difference of sums cancels.  Each row is
+    contiguous, so every sum runs in the order of a lone 1-D sum: on the
+    CPU the result is the eight separate sums' in every bit."""
+    rr = torch.sum((pm - scene) ** 2, dim=1)
+    rows = torch.cat([pm, scene, rr[:, None],
+                      pair_mask[:, None].to(pm.dtype)], dim=1)
+    # masked, one contiguous row a quantity: [6, S]
+    rows = torch.where(pair_mask[:, None], rows, 0.0).T.contiguous()
+    sums = rows.sum(1)
+    # [cmx, cmy, csx, csy, rms, 1] (the last 0 without a pair)
+    mean = sums / sums[5:].clamp(min=1)
 
-    cmx = _masked_mean(pm[:, 0], pair_mask, n)
-    cmy = _masked_mean(pm[:, 1], pair_mask, n)
-    csx = _masked_mean(scene[:, 0], pair_mask, n)
-    csy = _masked_mean(scene[:, 1], pair_mask, n)
-
-    xf = pm[:, 0] - cmx
-    yf = pm[:, 1] - cmy
-    xs = scene[:, 0] - csx
-    ys = scene[:, 1] - csy
-    nom = torch.sum(torch.where(pair_mask, yf * xs - xf * ys, 0.0))
-    den = torch.sum(torch.where(pair_mask, xf * xs + yf * ys, 0.0))
-    dtheta = torch.atan2(nom, den)
-
-    c, s = torch.cos(dtheta), torch.sin(dtheta)
-    dx = cmx - (c * csx - s * csy)
-    dy = cmy - (c * csy + s * csx)
-    return _rigid(c, s, dx, dy), rms
+    # centred rows [xf, yf, xs, ys, (unused), 0 on every pair]
+    cen = rows - mean[:, None]
+    fg = cen[0:2, None] * cen[None, 2:4]       # [2, 2, S]: f_i·g_j
+    terms = torch.stack([fg[1, 0] - fg[0, 1],  # yf·xs − xf·ys
+                         fg[0, 0] + fg[1, 1],  # xf·xs + yf·ys
+                         cen[5]])
+    nom_den_0 = torch.where(pair_mask, terms, 0.0).sum(1)
+    # [dtheta, 0]: the 0 gives the transform's constant row exactly
+    angle = torch.atan2(nom_den_0[0::2], nom_den_0[1:])
+    cs, sn = torch.cos(angle), torch.sin(angle)       # [c, 1], [s, 0]
+    c, s, ns = cs[0], sn[0], -sn[0]
+    rot = torch.stack([c, ns, s, c]).view(2, 2)
+    t = mean[0:2] - (rot * mean[2:4]).sum(1)
+    T = torch.stack([c, ns, t[0], s, c, t[1], sn[1], sn[1], cs[1]])
+    return T.view(3, 3), mean[4], sums[5]
 
 
 def point_to_line_2d(model: torch.Tensor, normals: torch.Tensor,

@@ -21,10 +21,12 @@ odometry rescue, and the 100 m site (map_size 12: every kernel against
 its twin in every bit, the push against the plain push in every cell).
 The other tests reuse the paths' nodes: the compiled paths' device
 launches from a profiler trace, the overflow guard's and the compiled
-entry points' launches, ICP's histories, the caster, the pose batch, the
-render, the row blocks and the functions ported last on the ICP path's
-grid, TwinPoint and multi-init against the CPU port, the multi-robot step
-and the row-sharded step in worlds of 1, 2 and 4 ranks on one card.
+entry points' launches, ICP's histories, ICP's replay (its device
+operations an iteration, its result against the eager call), the
+caster, the pose batch, the render, the row blocks and the functions
+ported last on the ICP path's grid, TwinPoint and multi-init against the
+CPU port, the multi-robot step and the row-sharded step in worlds of 1,
+2 and 4 ranks on one card.
 """
 
 import contextlib
@@ -89,6 +91,12 @@ CELLS = 1024
 SCANS = {"icp": 30, "narrow": 15, "tsd": 60, "other": 10, "gn": 30,
          "amcl": 20, "odom": 20, "site": 10, "overflow": 20}
 ICP_RECORD_SCANS = 20        # ICP-path icp calls rerun with the histories on
+# device operations of an ICP iteration (closed form, bounds, gate and
+# reciprocal rule, float32) in icp_jit's graph, read from a trace on an
+# H100: 57, the assignment's memset and two kernels among them (125 before
+# the iteration was written in wide ops; tests/test_torch_icp_iteration.py
+# counts the torch ops that launch the rest)
+ICP_KERNELS_PER_ITERATION = 57
 AMCL = {**SINGLE_LASER, "registration_mode": 5, "amcl_particles": 512,
         "amcl_iterations": 8,
         # tests/test_slam_e2e.py::test_slam_amcl_recovers_kidnap's
@@ -900,6 +908,39 @@ def test_icp_histories_on_the_path_calls(cuda_device):
         assert on.pair_idx_history.dtype == torch.int32
         assert bits_equal(on.T_history[n - 1], on.T)
         assert torch.equal(on.pair_mask_history.sum(1), on.pair_history)
+
+
+@pytest.mark.cuda
+def test_icp_replay_kernels_and_result(cuda_device):
+    """One of the ICP path's icp calls as icp_jit replays of 1 and of 25
+    iterations: the device operations of a replay, read from a profiler
+    trace (the copy-in, the graph's nodes, the clones of the outputs),
+    grow by at most ICP_KERNELS_PER_ITERATION an iteration, and the
+    25-iteration replay's IcpResult equals the eager call's in every
+    bit."""
+    from slambench.tracing import session
+
+    _, run = run_path("icp", cuda_device)
+    args, kwargs, _ = run["icp_calls"][len(run["icp_calls"]) // 2]
+    params = args[4]
+    assert params.iterations == 25 and params.estimator == "closed_form"
+    assert params.bounds is not None and params.use_reciprocal_filter
+    ops, res = {}, None
+    for n in (1, params.iterations):
+        p = dataclasses.replace(params, iterations=n)
+        call = lambda: icp_mod.icp_jit(*args[:4], p, **kwargs)  # noqa: E731
+        call()                                 # the capture
+        res = call()
+        ops[n] = len(session(lambda mark: call()).device)
+    if not ops[1]:
+        pytest.skip("the profiler shows no device activity on this card")
+    per_iteration = (ops[params.iterations] - ops[1]) / (params.iterations
+                                                         - 1)
+    assert per_iteration <= ICP_KERNELS_PER_ITERATION, (ops, per_iteration)
+    eager = icp_mod.icp(*args, **kwargs)
+    for f in ("T", "rms", "pairs", "iterations", "state", "rms_history",
+              "pair_history"):
+        assert bits_equal(getattr(res, f), getattr(eager, f)), f
 
 
 def checked_render(grid, loc):
