@@ -11,11 +11,11 @@ far longer than the window.  So it checks:
     and held against the program's;
   * a sample of the window's scans, drawn from the seed: from the grid,
     pose and last mapped pose the program held before the scan, the
-    reference's step (exact march, the TSD-likelihood seed in mode TSD,
-    ICP, the gates) against the pose the program returned; its gates on
-    the program's pose against whether the program mapped the scan; and,
-    where it did, the reference's push of the scan at the program's pose
-    against the program's next grid;
+    reference's step (exact march, the robot's RANSAC seed in modes EXP,
+    PDF and TSD, ICP, the gates) against the pose the program returned;
+    its gates on the program's pose against whether the program mapped
+    the scan; and, where it did, the reference's push of the scan at the
+    program's pose against the program's next grid;
   * in live cells, a sample of the window's publications: the occupancy
     grid and the colour image of the grid published, against the
     program's messages.

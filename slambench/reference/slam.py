@@ -1,16 +1,17 @@
 """The plain reference's SLAM step: the settings of a deployment, the
-robots' start, one localization step (the TSD-likelihood RANSAC seed in
-mode TSD, then ICP) and its gates, in plain PyTorch.
+robots' start, one localization step (a RANSAC seed in modes EXP, PDF and
+TSD, then ICP) and its gates, in plain PyTorch.
 
 A frozen copy of the straightforward path of the system under test
 (ohm_tsd_slam_tpu_torch's config.py, slam/node.py, slam/localize.py,
 registration/icp.py with the modular pair assignment and filters,
-registration/estimators.py, registration/ransac.py), trimmed to the
-registration modes the benchmark's deployments run: ICP (0) and TSD (3).
-ICP runs every iteration with a carry that freezes once the reference
-implementation would have left its loop.  The RANSAC draws come from the
-same per-robot, per-scan generator seeds as the node's, drawn in the same
-order and shapes.
+registration/estimators.py, registration/ransac.py), trimmed to the four
+registration modes of upstream's localizer (ThreadLocalize.h:75-81): ICP
+(0), EXP (1, RandomNormalMatching), PDF (2, PDFMatching) and TSD (3,
+TSD_PDFMatching).  ICP runs every iteration with a carry that freezes once
+the reference implementation would have left its loop.  The RANSAC draws
+come from the same per-robot, per-scan generator seeds as the node's,
+drawn in the same order and shapes.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from slambench.reference import grid as G
 
-MODE_ICP, MODE_TSD = 0, 3
+MODE_ICP, MODE_EXP, MODE_PDF, MODE_TSD = 0, 1, 2, 3
 # folds (seed, robot, scan counter) into one generator seed, as the node
 SEED_MIX = 1_000_003
 _BIG = 1e9
@@ -34,6 +35,25 @@ def draw_seed(seed: int, robot: int, count: int) -> int:
 
 
 # ---------------------------------------------------------------- settings
+
+@dataclass(frozen=True)
+class Beam:
+    """PDF's beam model (ThreadLocalize.cpp:114-129; upstream's names in
+    the parameters: zhit, zphi, zshort, zmax, zrand, sighit, sigphi,
+    lamshort, rangemax, percentagePointsInC, maxAngleDiff)."""
+
+    zhit: float
+    zphi: float
+    zshort: float
+    zmax: float
+    zrand: float
+    sig_hit: float
+    sig_phi: float
+    lam_short: float
+    range_max: float
+    percentage_points_in_c: float
+    max_angle_diff_deg: float
+
 
 @dataclass(frozen=True)
 class Robot:
@@ -55,6 +75,7 @@ class Robot:
     eps_thresh: float
     size_control_set: int
     phi_max_deg: float
+    beam: Beam
 
 
 @dataclass(frozen=True)
@@ -77,6 +98,18 @@ def deployment(params: dict) -> Deployment:
     (the ros__parameters of config/*.yaml), with the defaults of the
     upstream node."""
     n = int(params.get("robot_nbr", 1))
+    beam = Beam(
+        zhit=float(params.get("zhit", 0.45)),
+        zphi=float(params.get("zphi", 0.0)),
+        zshort=float(params.get("zshort", 0.25)),
+        zmax=float(params.get("zmax", 0.05)),
+        zrand=float(params.get("zrand", 0.25)),
+        sig_hit=float(params.get("sighit", 0.2)),
+        sig_phi=float(params.get("sigphi", math.radians(3.0))),
+        lam_short=float(params.get("lamshort", 0.08)),
+        range_max=float(params.get("rangemax", 20.0)),
+        percentage_points_in_c=float(params.get("percentagePointsInC", 0.9)),
+        max_angle_diff_deg=float(params.get("maxAngleDiff", 3.0)))
     robots = []
     for i in range(n):
         ns = ""
@@ -88,9 +121,10 @@ def deployment(params: dict) -> Deployment:
             return params.get(ns + key, params.get(key, default))
 
         mode = int(pick("registration_mode", 0))
-        if mode not in (MODE_ICP, MODE_TSD):
+        if mode not in (MODE_ICP, MODE_EXP, MODE_PDF, MODE_TSD):
             raise ValueError(f"registration_mode {mode}: the reference "
-                             "runs modes 0 (ICP) and 3 (TSD)")
+                             "runs modes 0 (ICP), 1 (EXP), 2 (PDF) and 3 "
+                             "(TSD)")
         robots.append(Robot(
             max_range=float(pick("max_range", 30.0)),
             min_range=float(pick("min_range", 0.001)),
@@ -112,7 +146,8 @@ def deployment(params: dict) -> Deployment:
             trials=int(params.get("trials", 100)),
             eps_thresh=float(params.get("epsThresh", 0.15)),
             size_control_set=int(params.get("sizeControlSet", 140)),
-            phi_max_deg=float(pick("ransac_phi_max", 30.0))))
+            phi_max_deg=float(pick("ransac_phi_max", 30.0)),
+            beam=beam))
     inflate = bool(params.get("use_object_inflation", False))
     return Deployment(
         map_size=int(params.get("map_size", 10)),
@@ -259,7 +294,17 @@ def icp(model, model_mask, scene, scene_mask, robot: Robot, T_init,
     return T
 
 
-# ---------------------------------------------------------------- RANSAC (TSD)
+# ---------------------------------------------------------------- RANSAC
+
+# candidates EXP and PDF score at a time: their [k, C, N] intermediates
+# (C control points against N model beams: 0.78 MB a candidate and tensor
+# at C = 180, N = 1081 in float32, several alive at once) stay bounded on
+# the card; the scores do not depend on it
+CHUNK = 256
+PCA_RADIUS = 10 // 2          # _pcaSearchRange 10: windows of beams [-5, 5)
+SCALE_ORIENTATION = 0.33      # RandomNormalMatching's _scaleOrientation
+ZRAND_TSD = 0.25              # TSD_PDFMatching's zrand
+
 
 def _pca_normals(points, mask, r: int):
     n = points.shape[0]
@@ -310,25 +355,84 @@ def _at(x, i):
     return x.index_select(0, i.reshape(1)).squeeze(0)
 
 
-def match_tsd(gen, grid: G.Grid, pose, model, mask_m, scene, mask_s,
-              robot: Robot, res: float):
-    """The TSD-likelihood RANSAC seed: trial model points paired with the
-    scene beams within ±phi_max, each candidate scored by the likelihood
-    of the transformed control set in the map, the best one kept."""
-    r = 10 // 2
+class Draws(NamedTuple):
+    """The draws of a matcher handed in instead of taken from its
+    generator: the scene's mask after the subsample, the control set's
+    and the trials' indices, each with its validity.  Tests replay the
+    compiled upstream's rand() stream into them; the benchmark hands
+    none."""
+
+    sub_mask: torch.Tensor      # [N]
+    ctrl_idx: torch.Tensor      # [C]
+    ctrl_valid: torch.Tensor    # [C]
+    trial_idx: torch.Tensor     # [T]
+    trial_valid: torch.Tensor   # [T]
+
+
+class Candidates(NamedTuple):
+    """What every RANSAC matcher scores: K = trials × 2·span candidate
+    transforms (trial-major, then the scene beam ascending, upstream's
+    visit order), and the control set they are scored by."""
+
+    phis: torch.Tensor          # [K] each candidate's rotation
+    ts: torch.Tensor            # [K, 2] its translation
+    valid: torch.Tensor         # [K]
+    ctrl: torch.Tensor          # [C, 2] the control points (scene frame)
+    ctrl_mask: torch.Tensor     # [C]
+    ctrl_phi: torch.Tensor      # [C] the orientation of their normals
+    phi_m: torch.Tensor         # [N] the orientation of the model's normals
+    mask_m: torch.Tensor        # [N] model points with a normal
+    theta_min: torch.Tensor     # the model's frustum: the polar angles of
+    theta_max: torch.Tensor     # its first and last point with a normal
+    ok: torch.Tensor            # three normals or more in both clouds
+    t_idx: torch.Tensor         # [T] the trials' model indices
+
+
+def candidates(gen, model, mask_m, scene, mask_s, robot: Robot, res: float,
+               draws: Optional[Draws] = None) -> Candidates:
+    """The preparation that EXP, PDF and TSD share
+    (RandomNormalMatching.cpp:96-263, PDFMatching.cpp:67-175,
+    TSD_PDFMatching.cpp:60-170): the model's PCA normals; the scene
+    subsampled to ~180 points, its normals taken over the whole scan's
+    windows and kept where the subsample keeps the beam; a control set of
+    size_control_set scene points with a normal; `trials` model points
+    with a normal; and for each trial, every scene beam within ±phi_max
+    of its beam whose normal turns onto the trial's by less than phi_max,
+    as the rotation by that turn and the translation that lays the scene
+    point on the model point.  The draws, from `gen` in this order unless
+    `draws` gives them: the subsample, the control set, the trials.
+
+    Departure from upstream: the subsample, the control set and the
+    trials are one uniform draw each (a random strict ranking of the valid
+    indices) where upstream calls rand() point by point; `draws` replays
+    upstream's stream exactly."""
+    r = PCA_RADIUS
     nm, mask_mp = _pca_normals(model, mask_m, r)
     phi_m = _phi(nm, mask_mp)
-    prob = 180.0 / mask_s.sum().clamp(min=1).to(torch.float32)
-    keep = torch.rand(mask_s.shape, generator=gen, device=mask_s.device) < prob
-    mask_sub = torch.where(prob < 0.99, mask_s & keep, mask_s)
+    if draws is None:
+        prob = 180.0 / mask_s.sum().clamp(min=1).to(torch.float32)
+        keep = torch.rand(mask_s.shape, generator=gen,
+                          device=mask_s.device) < prob
+        mask_sub = torch.where(prob < 0.99, mask_s & keep, mask_s)
+    else:
+        mask_sub = draws.sub_mask
     ns, mask_sp = _pca_normals(scene, mask_s, r)
     mask_sp = mask_sp & mask_sub
     phi_s = _phi(ns, mask_sp)
-    c_idx, c_mask = _subset(gen, mask_sp, robot.size_control_set)
-    ctrl = scene[c_idx]
+    if draws is None:
+        c_idx, c_mask = _subset(gen, mask_sp, robot.size_control_set)
+    else:
+        c_idx, c_mask = draws.ctrl_idx, draws.ctrl_valid
     n = model.shape[0]
     ok = (mask_mp.sum() >= 3) & (mask_sp.sum() >= 3)
-    t_idx, t_valid = _subset(gen, mask_mp, robot.trials)
+    if draws is None:
+        t_idx, t_valid = _subset(gen, mask_mp, robot.trials)
+    else:
+        t_idx, t_valid = draws.trial_idx, draws.trial_valid
+    # the frustum: with no model normal, model[0] and model[n - 1]
+    m8 = mask_mp.to(torch.uint8)
+    first = _at(model, m8.argmax())
+    last = _at(model, n - 1 - m8.flip(0).argmax())
 
     phi_max = min(math.radians(robot.phi_max_deg), math.pi * 0.5)
     span = max(1, int(math.floor(phi_max / res)))
@@ -344,30 +448,203 @@ def match_tsd(gen, grid: G.Grid, pose, model, mask_m, scene, mask_s,
     sx, sy = scene[i_c][..., 0], scene[i_c][..., 1]
     tx = model[t_idx][:, None, 0] - (c * sx - s * sy)
     ty = model[t_idx][:, None, 1] - (s * sx + c * sy)
-    phis = dphi.reshape(-1)
-    ts = torch.stack([tx, ty], dim=-1).reshape(-1, 2)
-    valid = valid.reshape(-1)
+    return Candidates(
+        phis=dphi.reshape(-1), ts=torch.stack([tx, ty], dim=-1).reshape(-1, 2),
+        valid=valid.reshape(-1), ctrl=scene[c_idx], ctrl_mask=c_mask,
+        ctrl_phi=_phi(ns[c_idx]), phi_m=phi_m, mask_m=mask_mp,
+        theta_min=torch.atan2(first[1], first[0]),
+        theta_max=torch.atan2(last[1], last[0]), ok=ok, t_idx=t_idx)
 
-    cp, sp = torch.cos(phis), torch.sin(phis)
-    x, y = ctrl[None, :, 0], ctrl[None, :, 1]
-    st = torch.stack([cp[:, None] * x - sp[:, None] * y + ts[:, 0:1],
-                      sp[:, None] * x + cp[:, None] * y + ts[:, 1:2]], -1)
-    tsd, code = G.interpolate(grid, G.transform_points(pose, st))
-    zrand = 0.25
-    logp = torch.where(code == G.SUCCESS,
-                       torch.log((1.0 - (1.0 - zrand) * tsd.abs())
-                                 .clamp(min=1e-30)),
-                       math.log(zrand))
-    logp = torch.where(c_mask[None, :], logp, 0.0).sum(1)
-    logp = torch.where(valid, logp, -_BIG)
 
-    key = torch.where(~torch.isnan(logp), logp, -math.inf)
-    b = (key == key.max()).to(torch.uint8).argmax()
-    qualified = _at(logp, b) > -_BIG * 0.5
-    phi, t = _at(phis, b), _at(ts, b)
+def _transform(cands: Candidates, phi, t):
+    """The control set under k candidate transforms: [k, C, 2]."""
+    c, s = torch.cos(phi), torch.sin(phi)
+    x, y = cands.ctrl[None, :, 0], cands.ctrl[None, :, 1]
+    return torch.stack([c[:, None] * x - s[:, None] * y + t[:, 0:1],
+                        s[:, None] * x + c[:, None] * y + t[:, 1:2]], -1)
+
+
+def _chunked(cands: Candidates, score, chunk: int):
+    """`score(phi [k], t [k, 2], valid [k])` over every candidate, `chunk`
+    at a time, each of its [k] outputs joined to [K]."""
+    K = cands.phis.shape[0]
+    parts = [score(cands.phis[k:k + chunk], cands.ts[k:k + chunk],
+                   cands.valid[k:k + chunk]) for k in range(0, K, chunk)]
+    return tuple(torch.cat(col) for col in zip(*parts))
+
+
+def _best(keys, cands: Candidates):
+    """The candidate whose keys are largest, compared in order, the lowest
+    index among equals, a NaN below every number, as a transform; the
+    identity where its first key marks it unqualified (-_BIG) or either
+    cloud has fewer than three normals (upstream's TBest fallback).
+
+    Departure from upstream: EXP's winner is this total order, where
+    upstream accepts candidates as they stream past by a rule that is not
+    one (RandomNormalMatching.cpp:344-360); PDF and TSD keep the first
+    highest probability, as upstream's strict `>` does."""
+    alive = torch.ones_like(keys[0], dtype=torch.bool)
+    for key in keys:
+        k = torch.where(alive & ~torch.isnan(key), key, -math.inf)
+        alive = alive & (k == k.max())
+    b = alive.to(torch.uint8).argmax()
+    qualified = _at(keys[0], b) > -_BIG * 0.5
+    phi, t = _at(cands.phis, b), _at(cands.ts, b)
     T = _rigid(torch.cos(phi), torch.sin(phi), t[0], t[1])
-    return torch.where(ok & qualified, T,
-                       torch.eye(3, dtype=ts.dtype, device=ts.device))
+    return torch.where(cands.ok & qualified, T,
+                       torch.eye(3, dtype=t.dtype, device=t.device))
+
+
+class NormalScores(NamedTuple):
+    ratio: torch.Tensor         # [K] cnt / max_cnt, -_BIG where gated out
+    cnt: torch.Tensor           # [K] control points that match
+    err_sum: torch.Tensor       # [K] their errors summed over the frustum
+    max_cnt: torch.Tensor       # [K] control points inside the frustum
+    cnt_thresh: torch.Tensor    # |C| // 3
+
+
+def normal_scores(cands: Candidates, model, robot: Robot,
+                  chunk: int = CHUNK) -> NormalScores:
+    """RandomNormalMatching's score of each candidate
+    (RandomNormalMatching.cpp:265-343): the control set transformed and
+    kept inside the model's frustum; each point's first nearest model
+    point with a normal, by d² = |q|² + |m|² − 2 q·m; its error d²/ε²
+    plus 0.33 · (1 − cos Δφ) / 2, Δφ between the two normals (cos Δφ
+    taken as cos·cos + sin·sin); a match where the error is under 1; the
+    candidate gated on more matches than a third of the control set.
+
+    Departure from upstream: the nearest point is exact, by a dense
+    search, where upstream asks a FLANN kd-tree."""
+    dtype = model.dtype
+    m2 = torch.sum(model * model, dim=1)
+    mx, my = model[:, 0], model[:, 1]
+    cosm, sinm = torch.cos(cands.phi_m), torch.sin(cands.phi_m)
+    cnt_thresh = cands.ctrl_mask.sum() // 3
+    scale_d = 1.0 / (robot.eps_thresh * robot.eps_thresh)
+
+    def score(phi, t, valid):
+        st = _transform(cands, phi, t)
+        theta = torch.atan2(st[..., 1], st[..., 0])
+        in_fov = ((theta >= cands.theta_min) & (theta <= cands.theta_max)
+                  & cands.ctrl_mask[None, :])
+        max_cnt = in_fov.sum(1)
+        q2 = torch.sum(st * st, dim=-1)
+        d2 = torch.where(cands.mask_m, q2[..., None] + m2 - 2.0 * (
+            st[..., 0:1] * mx + st[..., 1:2] * my), torch.inf)
+        d2min, nn = torch.min(d2, dim=-1)
+        beta = cands.ctrl_phi[None, :] + phi[:, None]
+        cos_d = cosm[nn] * torch.cos(beta) + sinm[nn] * torch.sin(beta)
+        err = (d2min.clamp(min=0.0) * scale_d
+               + (1.0 - cos_d) / 2.0 * SCALE_ORIENTATION)
+        cnt = (in_fov & (err < 1.0)).sum(1)
+        ratio = cnt.to(dtype) / max_cnt.clamp(min=1).to(dtype)
+        good = valid & (cnt > cnt_thresh) & (max_cnt > 0)
+        return (torch.where(good, ratio, -_BIG), cnt,
+                torch.where(in_fov, err, 0.0).sum(1), max_cnt)
+
+    return NormalScores(*_chunked(cands, score, chunk), cnt_thresh)
+
+
+def match_normal(gen, model, mask_m, scene, mask_s, robot: Robot,
+                 res: float, draws: Optional[Draws] = None,
+                 chunk: int = CHUNK):
+    """Mode EXP's seed, RandomNormalMatching::match
+    (RandomNormalMatching.cpp:67-395): the candidate with the highest
+    share of matches, rounded at upstream's equalThres 1e-5, then the
+    most matches, then the least error."""
+    cands = candidates(gen, model, mask_m, scene, mask_s, robot, res, draws)
+    sc = normal_scores(cands, model, robot, chunk)
+    return _best((torch.round(sc.ratio * 1e5), sc.cnt.to(sc.ratio.dtype),
+                  -sc.err_sum), cands)
+
+
+def beam_log_prob(m, s, beam: Beam):
+    """log of PDFMatching::probabilityOfTwoSingleScans
+    (PDFMatching.cpp:435-487) of a measured range s where the model reads
+    m: zhit·N(m − s; sighit) + zshort·Exp(s; lamshort) below m + zmax at
+    or past rangemax + zrand/rangemax below it + zphi·sigphi·N(s; sigphi);
+    where that sum is 0, -_BIG.
+
+    Kept from upstream: its last term is scaled by sigphi itself, not by
+    the Gaussian's normaliser it also computes (PDFMatching.cpp:452)."""
+    in_range = s < beam.range_max
+    hit = 1.0 / (math.sqrt(2.0 * math.pi) * beam.sig_hit)
+    phit = torch.where(in_range, hit * torch.exp(
+        -0.5 * (m - s) ** 2 / (beam.sig_hit ** 2)), 0.0)
+    pphi = beam.sig_phi * torch.exp(-0.5 * s * s
+                                    / (beam.sig_phi * beam.sig_phi))
+    norm = 1.0 / (1.0 - torch.exp(-beam.lam_short * m.clamp(min=1e-9)))
+    pshort = torch.where(s < m, norm * beam.lam_short
+                         * torch.exp(-beam.lam_short * s), 0.0)
+    pmax = (s >= beam.range_max).to(s.dtype)
+    prand = in_range.to(s.dtype) * (1.0 / beam.range_max)
+    p = (beam.zhit * phit + beam.zshort * pshort + beam.zmax * pmax
+         + beam.zrand * prand + beam.zphi * pphi)
+    return torch.log(p.clamp(min=1e-30)) - (~(p > 0)).to(s.dtype) * _BIG
+
+
+class PdfScores(NamedTuple):
+    logp: torch.Tensor          # [K] log-probability, -_BIG where gated out
+    logp_raw: torch.Tensor      # [K] before the gate
+    fov_cnt: torch.Tensor       # [K] control points with a model beam near
+
+
+def pdf_scores(cands: Candidates, model, robot: Robot,
+               chunk: int = CHUNK) -> PdfScores:
+    """PDFMatching's score of each candidate, the scene on the model
+    (PDFMatching.cpp:180-400): each transformed control point takes the
+    model point with a normal of the nearest polar angle, the first among
+    equals; the beam model's log-probabilities of its range against that
+    point's are summed over the control set; the candidate is gated on
+    more control points within maxAngleDiff of their model point than
+    percentagePointsInC of the control set.
+
+    Departure from upstream: the probabilities multiply as a sum of
+    logarithms, where upstream's product underflows."""
+    beam = robot.beam
+    thresh = math.radians(beam.max_angle_diff_deg)
+    m_angle = torch.where(cands.mask_m,
+                          torch.atan2(model[:, 1], model[:, 0]), _BIG)
+    m_dist = torch.sqrt(torch.sum(model * model, dim=1))
+    gate = cands.ctrl_mask.sum().to(model.dtype) * beam.percentage_points_in_c
+
+    def score(phi, t, valid):
+        st = _transform(cands, phi, t)
+        angle = torch.atan2(st[..., 1], st[..., 0])
+        dist = torch.sqrt(torch.sum(st * st, dim=-1))
+        diff, nn = torch.min((angle[..., None] - m_angle).abs(), dim=-1)
+        fov = ((diff < thresh) & cands.ctrl_mask[None, :]).sum(1)
+        logp = torch.where(cands.ctrl_mask[None, :],
+                           beam_log_prob(m_dist[nn], dist, beam), 0.0).sum(1)
+        good = valid & (fov.to(logp.dtype) > gate)
+        return torch.where(good, logp, -_BIG), logp, fov
+
+    return PdfScores(*_chunked(cands, score, chunk))
+
+
+def match_pdf(gen, model, mask_m, scene, mask_s, robot: Robot, res: float,
+              draws: Optional[Draws] = None, chunk: int = CHUNK):
+    """Mode PDF's seed, PDFMatching::match (PDFMatching.cpp:47-430): the
+    candidate of the highest probability."""
+    cands = candidates(gen, model, mask_m, scene, mask_s, robot, res, draws)
+    return _best((pdf_scores(cands, model, robot, chunk).logp,), cands)
+
+
+def match_tsd(gen, grid: G.Grid, pose, model, mask_m, scene, mask_s,
+              robot: Robot, res: float, draws: Optional[Draws] = None):
+    """Mode TSD's seed, TSD_PDFMatching::match (TSD_PDFMatching.cpp:30-283):
+    each candidate scored by the likelihood of the transformed control set
+    in the map, 1 − (1 − zrand)·|tsd| a point and zrand where the map
+    reads nothing; the most likely kept."""
+    cands = candidates(gen, model, mask_m, scene, mask_s, robot, res, draws)
+    st = _transform(cands, cands.phis, cands.ts)
+    tsd, code = G.interpolate(grid, G.transform_points(pose, st))
+    logp = torch.where(code == G.SUCCESS,
+                       torch.log((1.0 - (1.0 - ZRAND_TSD) * tsd.abs())
+                                 .clamp(min=1e-30)),
+                       math.log(ZRAND_TSD))
+    logp = torch.where(cands.ctrl_mask[None, :], logp, 0.0).sum(1)
+    return _best((torch.where(cands.valid, logp, -_BIG),), cands)
 
 
 # ---------------------------------------------------------------- the step
@@ -402,7 +679,13 @@ def step(dep: Deployment, robot: Robot, sen: G.Sensor, grid: G.Grid, pose,
     """One localization step of `robot` on `grid` from `pose`."""
     scene, scene_mask = G.to_cartesian(sen, data, mask)
     coords, _, model_mask = G.raycast(grid, sen, pose)
-    if robot.mode == MODE_TSD:
+    if robot.mode == MODE_EXP:
+        T_init = match_normal(gen, coords, model_mask, scene, scene_mask,
+                              robot, sen.res)
+    elif robot.mode == MODE_PDF:
+        T_init = match_pdf(gen, coords, model_mask, scene, scene_mask,
+                           robot, sen.res)
+    elif robot.mode == MODE_TSD:
         T_init = match_tsd(gen, grid, pose, coords, model_mask, scene,
                            scene_mask, robot, sen.res)
     else:

@@ -4,8 +4,9 @@ float32 rate (NVIDIA's data sheet for the SXM part at its full 700 W).
 
 Bytes count each input the work needs once and each output once; the
 operations per element are counted from the kernels' sources, roughly.
-These are the push and kernel A rows of the port's chip_smoke.py::
-kernel_bounds, whose bounds follow from the grid's shape alone.
+These are the push and kernel A rows of the port's
+tools/torch_kernel_times.py (its `bound`), whose bounds follow from the
+grid's shape alone.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """The push and kernel A bounds at the cells' 1024² grid are the port's
-PERF.md kernel table's (chip_smoke.py::kernel_bounds)."""
+PERF.md kernel table's (tools/torch_kernel_times.py::bound)."""
 
 from __future__ import annotations
 
