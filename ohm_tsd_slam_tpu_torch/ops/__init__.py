@@ -9,9 +9,11 @@ graph_cond_cuda wraps csrc/graph_cond.cu, no kernel of the JAX package:
 the conditional (IF) nodes that utils/compiled.py::when puts in a
 captured graph.  assign_pairs_cuda wraps csrc/assign_pairs.cu, no kernel
 of the JAX package either: ICP's pair assignment, whose twin is
-registration/nn.py::assign_pairs_plain.
+registration/nn.py::assign_pairs_plain; nearest_model_cuda wraps
+csrc/nearest_model.cu, nor one: the nearest-model-point search of RANSAC
+mode EXP, whose twin is registration/ransac.py::nearest_model_plain.
 
-The plain torch functions in grid/ (and registration/nn.py) are each
+The plain torch functions in grid/ (and registration/) are each
 kernel's reference and its CPU path.  No module here imports a compiler
 or builds a kernel at import time: ops/_build.py compiles csrc/*.cu at a
 kernel's first launch.

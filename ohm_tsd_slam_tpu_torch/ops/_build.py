@@ -34,8 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # by an ulp, and a sample near zero can flip an event), IEEE division and
 # square root, no flush of denormals.  The push decides per tile as
 # grid/push.py::tile_cull does (a corner's beam bin, a range-window edge),
-# so it rounds as its twin as well; ICP's pair assignment picks the least
-# of distances that must equal its twin's in every bit.
+# so it rounds as its twin as well; ICP's pair assignment and EXP's
+# nearest model point pick the least of distances that must equal their
+# twins' in every bit.
 _IEEE = ["-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false"]
 KERNEL_FLAGS: Dict[str, List[str]] = {
     "push": _IEEE,
@@ -44,6 +45,7 @@ KERNEL_FLAGS: Dict[str, List[str]] = {
     "segment_min": _IEEE,
     "window_replay": _IEEE,
     "assign_pairs": _IEEE,
+    "nearest_model": _IEEE,
 }
 
 _lock = threading.Lock()

@@ -26,7 +26,10 @@ the drop count once (utils/compiled.py::when); no other part of any mode
 reads the device inside the step.  On a grid wider than twice the
 sensor's reach the step first cuts the segment cache to the segments in
 reach of the pose (grid/raycast_fast.py::reach_cull: exact, so the render
-is the same), and `segments_swept` reports what kernel C swept.
+is the same), and `segments_swept` reports what kernel C swept.  In mode
+EXP `ransac_candidates` and `ransac_pairs` report the work of the
+matcher's nearest-model-point search (registration/ransac.py::
+normal_work).
 
 `localize_step_jit` is the step compiled, as the JAX package's
 `jax.jit(localize_step, static_argnames=("params",))`: on the card one
@@ -72,6 +75,7 @@ from ohm_tsd_slam_tpu_torch.registration.ransac import (
     match_normal,
     match_pdf,
     match_tsd,
+    normal_work,
 )
 from ohm_tsd_slam_tpu_torch.sensor.polar2d import (
     SensorPolar2D,
@@ -122,6 +126,11 @@ class LocalizeResult(NamedTuple):
     # segments kernel C swept for the render: the reach cull's count where
     # it ran, else the cache's (int64; 0 without a cache or a render)
     segments_swept: torch.Tensor
+    # mode EXP's search work (ransac.normal_work): the candidates that pass
+    # cand_valid and the (control point, model point) pairs tested for
+    # them (int64; 0 in the other modes and with T_prereg)
+    ransac_candidates: torch.Tensor
+    ransac_pairs: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -235,11 +244,13 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
         zero = torch.zeros((), dtype=torch.int64, device=scene.device)
         return _finish(params, pose, last_pose, odom_state, gn.T,
                        gn.matches >= params.gn.min_matches, gn.matches,
-                       scene_mask.sum(), gn.rms, gn.iterations, zero, zero)
+                       scene_mask.sum(), gn.rms, gn.iterations, zero, zero,
+                       (zero, zero))
 
     # the fast caster is overflow-guarded: on a capacity overflow the
     # exact march renders the scan, and the drop count is surfaced
-    swept = torch.zeros((), dtype=torch.int64, device=scene.device)
+    zero = torch.zeros((), dtype=torch.int64, device=scene.device)
+    swept, work = zero, (zero, zero)
     if params.fast_raycast:
         if segments is not None and reach_cull_pays(grid, geom):
             segments = reach_cull(segments, pose, reach_radius(grid, geom))
@@ -253,8 +264,10 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
     if T_prereg is not None:
         T_init = T_prereg
     elif params.mode == int(RegMode.EXP):
-        T_init = match_normal(generator, model.coords, model.mask,
-                              scene, scene_mask, params.ransac)
+        T_init, scores = match_normal(generator, model.coords, model.mask,
+                                      scene, scene_mask, params.ransac,
+                                      return_scores=True)
+        work = normal_work(scores)
     elif params.mode == int(RegMode.PDF):
         T_init = match_pdf(generator, model.coords, model.mask,
                            scene, scene_mask, params.ransac, params.beam)
@@ -273,12 +286,13 @@ def localize_step(grid: TsdGrid, pose: torch.Tensor,
     # the raycast-degenerate guard (:354-358): no model point, no pose
     return _finish(params, pose, last_pose, odom_state, icp_res.T,
                    model_valid > 0, model_valid, scene_mask.sum(),
-                   icp_res.rms, icp_res.iterations, model.n_dropped, swept)
+                   icp_res.rms, icp_res.iterations, model.n_dropped, swept,
+                   work)
 
 
 def _finish(params: LocalizeParams, pose, last_pose, odom_state, T,
             reg_ok, model_valid, scene_valid, rms, iterations,
-            rays_dropped, segments_swept) -> LocalizeResult:
+            rays_dropped, segments_swept, work) -> LocalizeResult:
     """The odometry rescue, the failure gate and the pose update."""
     if params.odom is not None and odom_state is not None:
         T, _ = odometry.check(odom_state, params.odom, T)
@@ -291,7 +305,8 @@ def _finish(params: LocalizeParams, pose, last_pose, odom_state, T,
         pose=new_pose, T=T, reg_error=err, significant=significant,
         model_valid=model_valid, scene_valid=scene_valid, rms=rms,
         icp_iterations=iterations, rays_dropped=rays_dropped,
-        segments_swept=segments_swept)
+        segments_swept=segments_swept, ransac_candidates=work[0],
+        ransac_pairs=work[1])
 
 
 def _step(grid: TsdGrid, pose: torch.Tensor, last_pose: torch.Tensor,

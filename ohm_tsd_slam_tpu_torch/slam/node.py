@@ -319,8 +319,9 @@ class SlamNode:
         `segments`, `localize_step_jit`, `read_gates`, `read_pose`,
         `map_update` and `callbacks`, and counts `icp_iterations_run`,
         `icp_iterations_useful`, `grid_versions`, `segment_capacity`,
-        `segments`, `segments_dropped`, `segments_swept` and
-        `scans_overflowed` from the values the gates' read brings back
+        `segments`, `segments_dropped`, `segments_swept`,
+        `scans_overflowed` and, in mode EXP, `ransac_candidates` and
+        `ransac_pairs` from the values the gates' read brings back
         anyway."""
         if not self._active:
             return None
@@ -358,17 +359,19 @@ class SlamNode:
 
         with spans.span("read_gates"):
             (reg_error, significant, n_over, icp_iterations, n_segments,
-             n_seg_dropped, n_swept) = torch.stack(
+             n_seg_dropped, n_swept, n_cands, n_pairs) = torch.stack(
                 [res.reg_error.to(torch.int64),
                  res.significant.to(torch.int64),
                  res.rays_dropped.to(torch.int64),
                  res.icp_iterations.to(torch.int64),
                  self._zero if seg is None else seg.count.to(torch.int64),
                  self._zero if seg is None else seg.n_dropped,
-                 res.segments_swept]).tolist()
+                 res.segments_swept, res.ransac_candidates,
+                 res.ransac_pairs]).tolist()
         if spans.enabled():
             self._count_scan(params, seg, n_over, icp_iterations,
-                             n_segments, n_seg_dropped, n_swept)
+                             n_segments, n_seg_dropped, n_swept,
+                             (n_cands, n_pairs))
         if n_over > 0:
             # fast-raycast capacity overflow: the guarded exact march
             # re-rendered the scan inside the step (no beams lost) — log
@@ -404,13 +407,18 @@ class SlamNode:
 
     def _count_scan(self, params: LocalizeParams, seg, n_over: int,
                     icp_iterations: int, n_segments: int,
-                    n_seg_dropped: int, n_swept: int) -> None:
+                    n_seg_dropped: int, n_swept: int,
+                    ransac_work: tuple) -> None:
         """A scan's counters (utils/spans.py).  ICP runs all its
         iterations in every mode but GN, which runs none; a grid
         version's capacity (its pack's width, a host-side shape) and
         segments count once, on the first scan that renders with them;
         the segments kernel C swept count on every scan that rendered
-        with a cache."""
+        with a cache; in mode EXP, every scan, the matcher's valid
+        candidates and the pairs its nearest-model-point search tests."""
+        if params.mode == int(RegMode.EXP):
+            spans.count("ransac_candidates", ransac_work[0])
+            spans.count("ransac_pairs", ransac_work[1])
         if params.mode != int(RegMode.GN):
             spans.count("icp_iterations_run", params.icp.iterations)
             spans.count("icp_iterations_useful", icp_iterations)

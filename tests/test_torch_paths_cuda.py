@@ -369,7 +369,12 @@ def path_tsd(dev):
 
 
 def path_exp(dev):
-    return ransac_run(dev, RegMode.EXP, SCANS["other"] + 1)
+    """Mode EXP: its nearest-model-point search one kernel launch a scan
+    (no other path launches it)."""
+    node, run = ransac_run(dev, RegMode.EXP, SCANS["other"] + 1)
+    assert run["launches"]["nearest_model"] == run["n_scans"], \
+        run["launches"]
+    return node, run
 
 
 def path_pdf(dev):

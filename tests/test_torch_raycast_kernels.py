@@ -559,7 +559,7 @@ def test_empty_grid(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["push", "window_replay", "segment_min",
                                   "pack_rows", "compact_channels",
-                                  "assign_pairs"])
+                                  "assign_pairs", "nearest_model"])
 def test_kernel_has_no_stack_frame_or_spill(cuda_device, name):
     """ptxas's report of csrc/<name>.cu built with its flags: no kernel of
     it indexes a local array at run time or spills."""

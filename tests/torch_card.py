@@ -41,6 +41,8 @@ WRAPPERS = {
                       "window_rounds_kernel"),
     "compact_channels": ("compact_channels_cuda", "pack_channels_rows",
                          "compact_kernel"),
+    "nearest_model": ("nearest_model_cuda", "nearest_model_plain",
+                      "nearest_model_kernel"),
 }
 STEPS_MULTI = 20             # multi-robot steps (ICP) on the double laser
 MULTI_TOL = 1e-4             # m: one step's poses, against another route

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The port's kernel table (PERF.md §6, rows 1-8) on one CUDA card.
+"""The port's kernel table (PERF.md §6, rows 1-9) on one CUDA card.
 
     python3 tools/torch_kernel_times.py
 
@@ -9,7 +9,8 @@ ICP path (configs/double-laser.yaml, two robots, 30 scans a robot)
 through SlamNode, then robot 0's last pose and a scan from it; the
 general-extraction path (map_size 6, 15 scans) for kernel E at its path's
 shape; the pose batch (P = 128) on the ICP path's grid for C, D and the
-rounds.
+rounds; EXP's nearest model point as match_normal hands it over in
+configs/single-laser.yaml's settings, on robot 0's render and scan.
 
 For each kernel: its wrapper (`ms`), the launch alone on held buffers
 (A, D, the rounds and the assignment hold nothing but their results:
@@ -52,6 +53,7 @@ from ohm_tsd_slam_tpu_torch.grid.raycast import (  # noqa: E402
 )
 from ohm_tsd_slam_tpu_torch.ops import (  # noqa: E402
     compact_channels_cuda,
+    nearest_model_cuda,
     pack_rows_cuda,
     push_cuda,
     segment_min_cuda,
@@ -62,7 +64,13 @@ from ohm_tsd_slam_tpu_torch.ops.assign_pairs_cuda import (  # noqa: E402
 from ohm_tsd_slam_tpu_torch.ops.window_replay_cuda import (  # noqa: E402
     ROUNDS_THREADS,
 )
-from ohm_tsd_slam_tpu_torch.registration import nn  # noqa: E402
+from ohm_tsd_slam_tpu_torch.registration import nn, ransac  # noqa: E402
+from ohm_tsd_slam_tpu_torch.registration.ransac import (  # noqa: E402
+    RansacParams,
+)
+from ohm_tsd_slam_tpu_torch.sensor.polar2d import (  # noqa: E402
+    data_to_cartesian,
+)
 from ohm_tsd_slam_tpu_torch.slam import LaserScan, SlamNode  # noqa: E402
 from ohm_tsd_slam_tpu_torch.slam import localize  # noqa: E402
 from ohm_tsd_slam_tpu_torch.utils.testing import (  # noqa: E402
@@ -71,6 +79,7 @@ from ohm_tsd_slam_tpu_torch.utils.testing import (  # noqa: E402
     NARROW,
     PHI_MIN,
     RES,
+    SINGLE_LASER,
     narrow_world,
     scan_ranges,
     trajectory,
@@ -400,6 +409,45 @@ def main() -> int:
         # the clouds, masks and payload read once, idx, dist2, the mask
         # and the paired rows written; ~10 operations a scene-model pair
         **bound(M_ * (8 + 1 + 4 * K_) + S_ * (18 + 4 * K_), S_ * M_ * 10))
+
+    # 9. EXP's nearest model point: match_normal in single-laser's
+    # settings (100 trials, 180 control points) on robot 0's render and
+    # scan; the kernel's inputs as the matcher hands them over, and the
+    # pairs its search has to test (ransac.normal_work)
+    calls, check = [], nearest_model_cuda.check_inputs
+
+    def spy(*args):
+        calls.append(args)
+        return check(*args)
+
+    model = rf.raycast_checked(grid, geom, pose, segments=seg)
+    scene, scene_mask = data_to_cartesian(geom, data, mask)
+    exp = RansacParams.from_config(from_flat_params(
+        SINGLE_LASER).robots[0].registration.ransac, geom.angular_res)
+    kernel = nearest_model_cuda.nearest_model
+    nearest_model_cuda.check_inputs = spy
+    try:
+        _, scores = ransac.match_normal(
+            torch.Generator(device="cuda").manual_seed(0), model.coords,
+            model.mask, scene, scene_mask, exp, return_scores=True)
+    finally:
+        nearest_model_cuda.check_inputs = check
+    nargs = (*calls[0], exp.chunk)
+    cands, pairs = (int(x) for x in ransac.normal_work(scores))
+    K_, C_ = nargs[0].shape[:2]
+    n_ms = ms(lambda: kernel(*nargs))
+    rows["nearest_model"] = dict(
+        ms=n_ms, kernel_ms=n_ms, device_ms=device_ms(lambda: kernel(*nargs)),
+        plain_ms=ms(lambda: ransac.nearest_model_plain(
+            *nargs[:6], nargs[7])),
+        plain_device_ms=device_ms(lambda: ransac.nearest_model_plain(
+            *nargs[:6], nargs[7]), reps=2),
+        shape=[K_, C_, nargs[2].shape[0]], valid_candidates=cands,
+        pairs=pairs,
+        # st and q2 read, four [K, C] outputs written; 8 operations a
+        # (control point in view, valid model point) pair of a valid
+        # candidate (slambench/metrics/match_normal_roofline.py)
+        **bound(K_ * C_ * 28, pairs * 8))
 
     for i, (name, r) in enumerate(rows.items(), 1):
         lib = r.get("library_ms")
